@@ -1,4 +1,4 @@
-"""TPU-native low-light image enhancement framework.
+"""Low-light image enhancement framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
 CILAB-IITM/Low_Light_Image_Enhancement (reference repo is documentation-only:
@@ -7,7 +7,7 @@ CILAB-IITM/Low_Light_Image_Enhancement (reference repo is documentation-only:
 performs RGB->float normalization, color-space conversion, Retinex-style
 illumination estimation + reflectance division, an optional Zero-DCE-style
 curve-adjustment CNN, and fused denoise + gamma correction — batched, jitted,
-Pallas-fused, and shardable over a TPU mesh.
+with a fused Pallas kernel on the GPU, and shardable over a device mesh.
 
 Public API::
 

@@ -4,7 +4,7 @@ The learned methods (curve / hybrid / fcn / decom) run on a *row block*: the
 image rows a device owns plus ``learned_halo(cfg)`` replicate-or-neighbor rows
 on each side. The same function — ``enhance_learned_block`` — is the
 single-device pipeline body (halo rows come from ``jnp.pad(mode='edge')``) and
-the shard_map per-device body (halo rows arrive over ICI via
+the shard_map per-device body (halo rows arrive from the neighbours via
 ``parallel.halo.halo_pad_local``), so spatially-sharded output matches
 single-device output *by construction*: the only inputs that differ are the
 halo rows, and the halo exchange reproduces exactly the rows edge-padding
@@ -18,9 +18,7 @@ edge coincides with the mask, so block height/width alignment padding can
 never leak into the output (SURVEY.md §7 hard part (a): the 0.1 dB budget
 dies in padding edges).
 
-The denoise tail runs as the fused Pallas stripe kernel when requested
-(``kernels.tiled_denoise``) or the pure-jnp bilateral otherwise, bit-identical
-either way.
+The whole block, denoise tail included, is plain ``jax.numpy``.
 """
 
 from __future__ import annotations
@@ -65,21 +63,21 @@ def cnn_radius(cfg: PipelineConfig) -> int:
 
 
 def learned_halo(cfg: PipelineConfig) -> int:
-    """Replicate/ICI halo rows per side for the block graph: the full
+    """Replicate/neighbour halo rows per side for the block graph: the full
     receptive radius of everything between block input and consumed output,
-    hardware-rounded (sublane multiple of 8; multiple of curve_downsample so
-    shard-local resample grids coincide with the single-device grid)."""
+    rounded to a multiple of 8 (of 8 * curve_downsample for the curve nets,
+    so shard-local resample grids coincide with the single-device grid)."""
     r = cnn_radius(cfg)
     if cfg.method == "hybrid":
         r += cfg.blur_radius  # boost runs before the CNN sees the block
     r += denoise_radius(cfg)  # bilateral (1) or guided (2*r) tail
     granule = 8 * cfg.curve_downsample if cfg.method in ("curve", "hybrid") \
         else 8
-    # Floor at margin + denoise radius: the fused video step's carry band
+    # Floor at margin + denoise radius: the video carry's consumed band
     # spans [halo - margin, halo + rows + margin) while consumers (denoise
     # taps of cropped outputs) read within denoise_radius of the owned
     # rows — halo - margin must cover that reach (the consumed-band
-    # argument of video._fused_ema_tail / parallel.video_sharded).
+    # argument of parallel.video_sharded).
     floor = canvas_margin(cfg) + denoise_radius(cfg)
     return _round_up(max(r, floor), granule)
 
@@ -102,8 +100,7 @@ def single_block_halo(cfg: PipelineConfig) -> int:
     granule halo; decom's 5-layer stack reaches 4 < 8. fcn's divergence
     reach is its layer-2..7 dilation sum (2+4+8+16+32+1 = 63) + 1 bilateral
     row = 64 < the 72-row full halo (which also counts layer 1's dilation) —
-    a small but free canvas cut; the real fcn attack is the packed conv
-    impl.
+    a small but free canvas cut.
 
     Hybrid additionally needs ``blur_radius`` real replicate rows beyond the
     MARGIN band: the boost's wrap-roll blur must read true edge replicas (not
@@ -130,82 +127,11 @@ def single_block_halo(cfg: PipelineConfig) -> int:
     return _round_up(r, granule)
 
 
-# Per-method auto bands: (packed_max, packed12_max), exclusive upper
-# bounds on the batch dimension. batch < packed_max -> 'packed';
-# packed_max <= batch < packed12_max -> 'packed12' (None skips the band);
-# else 'xla'. Pinned by END-TO-END pipeline rates (u8->u8, the workload
-# auto serves), not conv-stack-only rates — the two disagree:
-# docs/PERFORMANCE.md round-3 crossover tables. E2e img/s at 600x400:
-#   fcn:   packed 632/662/742 vs xla 348/468/691 at batch 24/32/48; xla
-#          818 vs packed 768 by 64 -> (56, None): midpoint of the
-#          48-win / 64-loss bracket.
-#   curve: packed 491/507/540 vs xla 406/420/567 at batch 24/32/48
-#          -> (40, None): midpoint of the 32-win / 48-loss bracket.
-#   decom: e2e xla dominant by 64 (1841 vs 1164) -> conservative
-#          (32, None).
-# packed12 (2x lanes at 2x FLOPs) wins conv-stack-only on curve at
-# b24-48 (816 vs 764 at 48) but NEVER end-to-end (b48: 553 vs xla 567;
-# its pack/unpack layout passes don't fuse as well into the full graph),
-# so no method carries a packed12 band — it stays an explicit
-# conv_impl choice with parity coverage, recorded as a measured e2e
-# negative. hybrid shares curve's CNN; its ds>1 inputs are smaller
-# (lower MXU utilization, packing pays longer), so curve's bands are
-# conservative for it. Unlisted methods use _AUTO_BANDS_DEFAULT.
-AUTO_CONV_BANDS: dict = {
-    "fcn": (56, None),
-    "decom": (32, None),
-    "curve": (40, None),
-    "hybrid": (40, None),
-}
-_AUTO_BANDS_DEFAULT = (32, None)
-
-
-def resolve_conv_impl(
-    cfg: PipelineConfig,
-    use_pallas: bool = False,
-    interpret: bool = False,
-    batch: Optional[int] = None,
-) -> PipelineConfig:
-    """Resolve conv_impl='auto' and environment gates to a concrete impl.
-
-    'auto' (measured policy, docs/PERFORMANCE.md round-3 conv tables):
-    TPU + known batch -> the per-method AUTO_CONV_BANDS lookup: 'packed'
-    at small batch (the s2d block conv fills the MXU's lanes when the
-    batch can't: fcn e2e 662 vs 468 img/s at batch 32), 'xla' above
-    (XLA's conv lowering scales with batch: fcn e2e 818 vs 768 at batch
-    64). Unknown batch or off-TPU -> 'xla' (packed's structural FLOP
-    inflation only pays off on the MXU).
-    Consequence of shape-aware auto: small- and large-batch runs of the
-    same image may differ by up to 1 u8 step per pixel (the packing
-    reorders the conv contraction; at the bf16 compute default ~20% of
-    pixels flip by one step, at float32 only isolated rounding ties —
-    tests/kernels/test_fused_curve.py). Set conv_impl explicitly for
-    bit-stable-across-batch output.
-
-    'pallas' degrades to 'xla' off-TPU (the kernels need a chip or
-    interpret mode) — mirrors the tail-kernel gate. Backend check only —
-    NOT use_pallas: interpret-mode runs on CPU must resolve identically to
-    the jnp reference or u8 rounding ties flip between the two parity arms
-    (tests/kernels/test_fused_curve.py). Trace-time static:
-    jax.default_backend() and the batch dim are Python values, so the
-    choice bakes into each compiled graph."""
+def resolve_conv_impl(cfg: PipelineConfig) -> PipelineConfig:
+    """Resolve ``conv_impl="auto"`` to a concrete lowering: XLA's own
+    convolution (cuDNN on the GPU). ``packed``, ``packed12`` and ``gemm``
+    stay explicit choices."""
     if cfg.conv_impl == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        impl = "xla"
-        if on_tpu and batch is not None:
-            packed_max, packed12_max = AUTO_CONV_BANDS.get(
-                cfg.method, _AUTO_BANDS_DEFAULT)
-            if batch < packed_max:
-                impl = "packed"
-            elif packed12_max is not None and batch < packed12_max:
-                impl = "packed12"
-        return cfg.replace(conv_impl=impl)
-    if cfg.conv_impl == "pallas" and not (use_pallas or interpret):
-        return cfg.replace(conv_impl="xla")
-    if cfg.conv_impl == "cascade" and (
-        cfg.method != "fcn" or not (use_pallas or interpret)
-    ):
-        # the line-buffer cascade kernel implements the fcn stack only
         return cfg.replace(conv_impl="xla")
     return cfg
 
@@ -244,7 +170,6 @@ def replicate_margin_cols(y: jnp.ndarray, w: int,
 
 def _curve_maps_lowres(
     cnn_in: jnp.ndarray, cfg: PipelineConfig, params: Dict[str, Any],
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """Estimate LE-curve maps on the (masked) block at 1/ds resolution
     (near-lossless FLOP cut: the maps are smooth by the TV training loss).
@@ -253,7 +178,6 @@ def _curve_maps_lowres(
         apply_curve_cnn,
         apply_curve_cnn_gemm,
         apply_curve_cnn_packed,
-        apply_curve_cnn_pallas,
     )
 
     ds = cfg.curve_downsample
@@ -265,11 +189,6 @@ def _curve_maps_lowres(
             )
         cnn_in = jax.image.resize(
             cnn_in, (*lead, hb // ds, wb // ds), method="bilinear"
-        )
-    if cfg.conv_impl == "pallas":
-        return apply_curve_cnn_pallas(
-            params, cnn_in, n_iter=cfg.curve_iters,
-            compute_dtype=jnp.dtype(cfg.compute_dtype), interpret=interpret,
         )
     apply = {"gemm": apply_curve_cnn_gemm,
              "packed": apply_curve_cnn_packed,
@@ -283,18 +202,16 @@ def _curve_maps_lowres(
 
 def _curve_maps(
     cnn_in: jnp.ndarray, cfg: PipelineConfig, params: Dict[str, Any],
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """Full-resolution LE-curve maps: low-res estimate + the integer-factor
     bilinear upsample of record (``ops.filters.upsample_int``, cols then
-    rows — exactly the order the fused kernel uses, so both paths share the
-    same floats)."""
+    rows)."""
     from low_light_image_enhancement_tpu.ops.filters import (
         shift2d,
         upsample_int,
     )
 
-    maps = _curve_maps_lowres(cnn_in, cfg, params, interpret=interpret)
+    maps = _curve_maps_lowres(cnn_in, cfg, params)
     ds = cfg.curve_downsample
     if ds > 1:
         maps = upsample_int(maps, ds, axis=-1, shift_fn=shift2d)
@@ -309,18 +226,15 @@ def enhance_learned_block(
     row0,
     h: int,
     w: int,
-    use_pallas: bool = False,
-    interpret: bool = False,
     pre_boosted: Optional[jnp.ndarray] = None,
     halo: Optional[int] = None,
 ) -> jnp.ndarray:
     """Learned-method enhance on one halo'd row block.
 
     Args:
-      xb: (B, 3, HB, WB) block — f32 in [0, 1], or uint8 (the fast path:
-        curve/hybrid with ``use_pallas`` run the fused u8-in/u8-out tail
-        kernel, and sharded halos move u8 rows over ICI at 1/4 the bytes);
-        HB = owned rows + 2 * halo; WB a multiple of 128
+      xb: (B, 3, HB, WB) block — f32 in [0, 1], or uint8 (sharded halos
+        then move u8 rows at 1/4 the bytes; the block converts at its own
+        boundary); HB = owned rows + 2 * halo; WB from ``block_geometry``,
         with MARGIN replicate cols before the image's col 0. Halo rows are
         neighbor rows (sharded) or edge replicas (single device / global
         edges) — same values either way.
@@ -328,7 +242,7 @@ def enhance_learned_block(
       h, w: true image extent, for the zero-mask beyond MARGIN.
       pre_boosted: (hybrid only) an externally computed illumination-boosted
         block — e.g. the temporally-EMA'd boost of ``video.video_step`` —
-        used in place of the internal ``illumination_boost`` (jnp tail only).
+        used in place of the internal ``illumination_boost``.
       halo: rows per side above/below the owned rows; defaults to
         ``learned_halo(cfg)`` (the sharded contract). The single-device
         pipeline passes ``single_block_halo(cfg)`` — semantics are identical
@@ -343,8 +257,7 @@ def enhance_learned_block(
         quantize_u8,
     )
 
-    cfg = resolve_conv_impl(cfg, use_pallas=use_pallas, interpret=interpret,
-                            batch=xb.shape[0] if xb.ndim == 4 else 1)
+    cfg = resolve_conv_impl(cfg)
     m = canvas_margin(cfg)
     if halo is None:
         halo = learned_halo(cfg)
@@ -365,25 +278,7 @@ def enhance_learned_block(
     cnn_in = _mask_extent(y if cfg.method == "hybrid" else xf, row0, h, w, m)
 
     if cfg.method in ("curve", "hybrid"):
-        ds = cfg.curve_downsample
-        if use_pallas and pre_boosted is None:
-            # Fused tail kernel: u8 normalize + (hybrid) boost + n_iter curve
-            # iterations + bilateral denoise + u8 quantize in one VMEM-
-            # resident pass — the maps are the only remaining f32 HBM read.
-            # With ds in {2, 4} the maps stay fully low-res (1/ds rows AND
-            # cols, both upsampled inside the kernel): ds^2 x less map
-            # traffic and no XLA upsample pass at all.
-            if ds in (2, 4):
-                maps_lo = _curve_maps_lowres(cnn_in, cfg, model_params,
-                                             interpret=interpret)
-                return _fused_curve_tail(xb, maps_lo, cfg, halo, rows,
-                                         interpret, ds=ds, img_w=w)
-            return _fused_curve_tail(
-                xb, _curve_maps(cnn_in, cfg, model_params,
-                                interpret=interpret),
-                cfg, halo, rows, interpret, img_w=w,
-            )
-        maps = _curve_maps(cnn_in, cfg, model_params, interpret=interpret)
+        maps = _curve_maps(cnn_in, cfg, model_params)
         y = jnp.clip(apply_curves(y, maps), 0.0, 1.0)
         if u8_io and cfg.denoise_strength <= 0.0:
             return quantize_u8(y[..., halo : halo + rows, :])
@@ -392,103 +287,40 @@ def enhance_learned_block(
             apply_fcn,
             apply_fcn_gemm,
             apply_fcn_packed,
-            apply_fcn_pallas,
         )
 
-        if cfg.conv_impl == "pallas":
-            y = apply_fcn_pallas(
-                model_params, cnn_in,
-                compute_dtype=jnp.dtype(cfg.compute_dtype),
-                interpret=interpret,
-            )
-        elif cfg.conv_impl == "cascade":
-            from low_light_image_enhancement_tpu.kernels.fcn_cascade import (
-                apply_fcn_cascade,
-            )
-
-            y = apply_fcn_cascade(
-                model_params, cnn_in,
-                compute_dtype=jnp.dtype(cfg.compute_dtype),
-                interpret=interpret,
-            )
-        else:
-            apply = {"gemm": apply_fcn_gemm,
-                     "packed": apply_fcn_packed,
-                     "packed12": partial(apply_fcn_packed, block=(1, 2)),
-                     }.get(cfg.conv_impl, apply_fcn)
-            y = apply(model_params, cnn_in,
-                      compute_dtype=jnp.dtype(cfg.compute_dtype))
+        apply = {"gemm": apply_fcn_gemm,
+                 "packed": apply_fcn_packed,
+                 "packed12": partial(apply_fcn_packed, block=(1, 2)),
+                 }.get(cfg.conv_impl, apply_fcn)
+        y = apply(model_params, cnn_in,
+                  compute_dtype=jnp.dtype(cfg.compute_dtype))
         y = jnp.clip(y, 0.0, 1.0)
     elif cfg.method == "decom":
         from low_light_image_enhancement_tpu.models.decom import (
             apply_decom_net,
             apply_decom_net_gemm,
             apply_decom_net_packed,
-            apply_decom_net_pallas,
         )
 
-        if cfg.conv_impl == "pallas":
-            r, l = apply_decom_net_pallas(
-                model_params, cnn_in,
-                compute_dtype=jnp.dtype(cfg.compute_dtype),
-                interpret=interpret,
-            )
-        else:
-            apply = {"gemm": apply_decom_net_gemm,
-                     "packed": apply_decom_net_packed,
-                     "packed12": partial(apply_decom_net_packed,
-                                         block=(1, 2)),
-                     }.get(cfg.conv_impl, apply_decom_net)
-            r, l = apply(
-                model_params, cnn_in,
-                compute_dtype=jnp.dtype(cfg.compute_dtype),
-            )
+        apply = {"gemm": apply_decom_net_gemm,
+                 "packed": apply_decom_net_packed,
+                 "packed12": partial(apply_decom_net_packed, block=(1, 2)),
+                 }.get(cfg.conv_impl, apply_decom_net)
+        r, l = apply(
+            model_params, cnn_in,
+            compute_dtype=jnp.dtype(cfg.compute_dtype),
+        )
         l_boost = jnp.clip(l, cfg.illum_eps, 1.0) ** cfg.decom_gamma
         y = jnp.clip(r * l_boost, 0.0, 1.0)
     else:
         raise ValueError(
             f"enhance_learned_block: method {cfg.method!r} is not a learned "
-            "method (retinex has its own fused path)"
+            "method (retinex has its own path)"
         )
 
     if cfg.denoise_strength <= 0.0:
         out = y[..., halo : halo + rows, :]
-        return quantize_u8(out) if u8_io else out
-
-    if use_pallas:
-        from low_light_image_enhancement_tpu.kernels.striping import (
-            plan_stripes,
-        )
-        from low_light_image_enhancement_tpu.kernels.tiled_denoise import (
-            tiled_denoise,
-        )
-
-        wb = xb.shape[-1]
-        # luma guide holds 3 channels + guide + accumulators live at once;
-        # the guided tail holds stats/a/b planes on top (radius-dependent:
-        # the flat +32 model OOM'd Mosaic's scoped vmem at r=4, round 4)
-        from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-            guided_tail_bytes_per_px,
-        )
-
-        dn_bpp = 72 if cfg.denoise_guide == "luma" else 40
-        if cfg.denoise_taps == "guided":
-            dn_bpp += guided_tail_bytes_per_px(cfg.guided_radius)
-        plan = plan_stripes(rows, wb - 2 * m, m, cfg.stripe_rows,
-                            bytes_per_px=dn_bpp)
-        sub = y[..., halo - m : halo + rows + m, :]
-        extra = plan.padded_h - (rows + 2 * m)
-        if extra:
-            sub = jnp.pad(sub, ((0, 0),) * (sub.ndim - 2)
-                          + ((0, extra), (0, 0)), mode="edge")
-        out = tiled_denoise(sub, cfg.denoise_sigma, cfg.denoise_strength,
-                            plan, interpret=interpret,
-                            kind=cfg.denoise_kernel,
-                            guide=cfg.denoise_guide,
-                            taps=cfg.denoise_taps,
-                            guided_radius=cfg.guided_radius,
-                            guided_eps=cfg.guided_eps,
-                            windowed=cfg.stripe_windowed)[..., :rows, :]
         return quantize_u8(out) if u8_io else out
 
     from low_light_image_enhancement_tpu.ops.denoise import denoise_planar
@@ -502,87 +334,13 @@ def enhance_learned_block(
     return quantize_u8(out) if u8_io else out
 
 
-def _fused_curve_tail(
-    xb: jnp.ndarray,
-    maps: jnp.ndarray,
-    cfg: PipelineConfig,
-    halo: int,
-    rows: int,
-    interpret: bool,
-    ds: int = 1,
-    img_w: int = 0,
-    gain: Optional[jnp.ndarray] = None,
-) -> jnp.ndarray:
-    """Route the raw block + curve maps through the fused Pallas tail
-    (kernels.fused_enhance.fused_curve_enhance); u8 or f32 in/out.
-
-    ``ds`` == 1: ``maps`` is (B, it, 3, HB, WB) full-res. ``ds`` in {2, 4}:
-    ``maps`` is (B, it, 3, HB/ds, WB/ds) fully low-res — both axes upsampled
-    inside the kernel. Alignment invariants (all guaranteed by
-    ``learned_halo``'s 8*ds granule, MARGIN=4, 8-multiple stripe rows and
-    128-multiple padded width): halo, MARGIN, stripe offsets, padded_h and
-    padded_w are divisible by ds, so the stripe-local phase equals the block
-    phase on both axes and the kernel's upsample reproduces the reference's
-    floats exactly on consumed pixels."""
-    from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-        curve_plan_bytes_per_px,
-        fused_curve_enhance,
-    )
-    from low_light_image_enhancement_tpu.kernels.striping import plan_stripes
-
-    single = xb.ndim == 3
-    if single:
-        xb, maps = xb[None], maps[None]
-        if gain is not None:
-            gain = gain[None]
-    m = canvas_margin(cfg)
-    wb = xb.shape[-1]
-    plan = plan_stripes(
-        rows, wb - 2 * m, m, cfg.stripe_rows,
-        bytes_per_px=curve_plan_bytes_per_px(cfg.curve_iters, ds,
-                                             cfg.denoise_guide,
-                                             cfg.denoise_taps,
-                                             cfg.guided_radius),
-    )
-    sub = xb[..., halo - m : halo + rows + m, :]
-    extra = plan.padded_h - (rows + 2 * m)
-    if extra:
-        sub = jnp.pad(
-            sub, ((0, 0),) * (sub.ndim - 2) + ((0, extra), (0, 0)),
-            mode="edge",
-        )
-    gain_sub = None
-    if gain is not None:
-        gain_sub = gain[..., halo - m : halo + rows + m, :]
-        if extra:
-            gain_sub = jnp.pad(
-                gain_sub,
-                ((0, 0),) * (gain_sub.ndim - 2) + ((0, extra), (0, 0)),
-                mode="edge",
-            )
-    lo0 = (halo - m) // ds
-    lo_rows = plan.padded_h // ds
-    avail = maps.shape[-2]
-    maps_sub = maps[..., lo0 : min(lo0 + lo_rows, avail), :]
-    short = lo0 + lo_rows - avail
-    if short > 0:
-        # rows past the block only pad alignment stripes whose output is
-        # cropped; values are irrelevant
-        maps_sub = jnp.pad(
-            maps_sub,
-            ((0, 0),) * (maps_sub.ndim - 2) + ((0, short), (0, 0)),
-            mode="edge",
-        )
-    out = fused_curve_enhance(sub, maps_sub, cfg, plan, interpret=interpret,
-                              ds=ds, img_w=img_w,
-                              gain=gain_sub)[..., :rows, :]
-    return out[0] if single else out
-
-
 def block_geometry(cfg: PipelineConfig, h: int, w: int, n_shards: int = 1):
     """(rows_per_shard, padded_w) for the block graph: rows rounded so every
-    shard owns the same sublane- and resample-aligned row count; width padded
-    to lanes with MARGIN cols before the image origin."""
+    shard owns the same 8- and resample-aligned row count; width padded to a
+    multiple of 128 with MARGIN cols before the image origin. The learned
+    nets see zeros beyond image + MARGIN, and the resample's boundary sits
+    at the padded width, so this width is part of the learned methods'
+    numerics."""
     halo = learned_halo(cfg)
     granule = 8
     if cfg.method in ("curve", "hybrid"):

@@ -15,7 +15,11 @@ import json
 import sys
 from typing import List, Optional
 
-from low_light_image_enhancement_tpu.config import PRESETS, PipelineConfig
+from low_light_image_enhancement_tpu.config import (
+    CONV_IMPLS,
+    PRESETS,
+    PipelineConfig,
+)
 
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
@@ -42,15 +46,13 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    help="guided tail edge/flat threshold")
     p.add_argument("--curve-downsample", type=int, choices=[1, 2, 4, 8],
                    default=None, help="estimate curve maps at 1/N res")
-    p.add_argument("--conv-impl",
-                   choices=["auto", "xla", "pallas", "gemm", "packed",
-                            "packed12"],
-                   default=None,
-                   help="learned-model conv lowering (auto: packed on TPU)")
+    p.add_argument("--conv-impl", choices=list(CONV_IMPLS), default=None,
+                   help="learned-model conv lowering (auto: XLA's own)")
     p.add_argument("--data-shards", type=int, default=None,
                    help="shard batches over N devices (DP inference/serving)")
     p.add_argument("--no-pallas", action="store_true",
-                   help="force the pure-jnp reference path")
+                   help="run the plain jnp graph instead of the fused "
+                        "retinex kernel")
     p.add_argument("--weights", default=None,
                    help="model weights: an .npz path or a shipped name "
                         "(zeroref, curve, hybrid, fcn, decom, plus the "
@@ -91,8 +93,8 @@ def _model_params(args):
 def _load_raw_mosaic(path: str):
     """Load a (H, W) Bayer mosaic: .npy (u8/u16/float, or non-negative
     16-bit-range int16/int32 — common RAW container dtypes, converted to
-    u16) or a single-channel image file (16-bit PNG/PGM load as u16 via
-    PIL mode I/I;16)."""
+    u16), a single-channel 8/16-bit PNG (``io.codec.decode_png``), or
+    another single-channel image file such as PGM (through Pillow)."""
     import numpy as np
 
     if path.endswith(".npy"):
@@ -110,9 +112,24 @@ def _load_raw_mosaic(path: str):
                 )
             arr = arr.astype(np.uint16)
         return arr
-    from PIL import Image
+    from low_light_image_enhancement_tpu.io.codec import (
+        PNG_SIGNATURE,
+        _pil,
+        decode_png,
+    )
 
-    img = Image.open(path)
+    with open(path, "rb") as f:
+        is_png = f.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
+    if is_png:
+        arr = decode_png(path)
+        if arr.ndim != 2:
+            raise ValueError(
+                f"--raw expects a single-channel mosaic, got shape "
+                f"{arr.shape} from {path}; use a .npy, 16-bit PNG, or PGM "
+                "file"
+            )
+        return arr
+    img = _pil().open(path)
     if img.mode not in ("L", "I", "I;16"):
         raise ValueError(
             f"--raw expects a single-channel mosaic, got mode {img.mode!r} "
@@ -336,8 +353,8 @@ def cmd_video(args) -> int:
 def _cmd_video_streams(args, decode_image, encode_image) -> int:
     """--streams: the glob matches one directory per independent stream;
     frame t of every stream goes through ONE batched device step
-    (MultiStreamVideoEnhancer — the batch-1 CNN leaves the MXU idle,
-    docs/PERFORMANCE.md video table). Streams advance in lockstep through
+    (MultiStreamVideoEnhancer: one batched step instead of S batch-1
+    steps). Streams advance in lockstep through
     their sorted frame lists; processing stops at the shortest stream."""
     import glob
     import os
@@ -424,16 +441,14 @@ def _cmd_video_streams(args, decode_image, encode_image) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     # Every CLI process after the first loads compiled executables from the
-    # persistent cache instead of re-paying XLA/Mosaic compiles (measured
-    # 43 s -> 0.6 s per program cross-process). LLIE_COMPILE_CACHE=0
-    # disables; a path overrides ~/.cache/llie/xla.
+    # persistent cache (utils.compile_cache says where it lives).
     from low_light_image_enhancement_tpu.utils.compile_cache import (
         enable_compile_cache,
     )
 
     enable_compile_cache()
     parser = argparse.ArgumentParser(
-        prog="llie", description="TPU-native low-light image enhancement"
+        prog="llie", description="low-light image enhancement in JAX"
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -487,11 +502,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--denoise-in-loss", action="store_true",
                    help="paired loss compares AFTER the pipeline's denoise "
                         "tail (the shipped hybrid weights' recipe: +0.06 "
-                        "SSIM — docs/PERFORMANCE.md denoise-in-loss section)")
+                        "SSIM — docs/PERFORMANCE.md @84fe805 denoise-in-loss section)")
     p.add_argument("--objective", choices=["zeroref", "paired"],
                    default="zeroref",
                    help="curve/hybrid objective; 'paired' is the recipe "
-                        "behind the shipped weights (docs/PERFORMANCE.md)")
+                        "behind the shipped weights (docs/PERFORMANCE.md @84fe805)")
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--crop", type=int, default=512)
     p.add_argument("--steps", type=int, default=600)  # zero-ref early stop

@@ -35,15 +35,14 @@ def canvas_margin(cfg: "PipelineConfig") -> int:
     """Edge-replicate margin of the padded canvas for ``cfg``: the total
     receptive radius of the per-pixel tail (illumination blur where the
     method has one, plus the denoise radius), floored at MARGIN and rounded
-    to a sublane multiple above it (8 also keeps the curve/hybrid ds
-    divisibility for every allowed curve_downsample). All pre-guided
-    configs resolve to exactly MARGIN=4 — geometry unchanged."""
+    to a multiple of 8 above it (which keeps the curve/hybrid ds
+    divisibility for every allowed curve_downsample). All bilateral
+    configs resolve to exactly MARGIN=4."""
     # The denoise taps at the first consumed row reach denoise_radius rows
     # toward the canvas edge; those rows must be clear of every wrap-roll
     # corruption band. The corruption sources are PARALLEL (each measured
     # from the canvas edge, none feeds another): the illumination blur's
-    # radius, and the fused tail's in-kernel map upsample (ds in {2, 4}
-    # only; ds=8 upsamples in XLA with clamp shifts) wrapping ds/2 rows.
+    # radius, and ds/2 rows for a curve-map upsample at ds in {2, 4}.
     edge = 0
     if cfg.method in ("retinex", "hybrid"):
         edge = cfg.blur_radius
@@ -53,6 +52,7 @@ def canvas_margin(cfg: "PipelineConfig") -> int:
     return MARGIN if r <= MARGIN else -(-r // 8) * 8
 
 _METHODS = ("retinex", "curve", "hybrid", "fcn", "decom")
+CONV_IMPLS = ("auto", "xla", "gemm", "packed", "packed12")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +91,7 @@ class PipelineConfig:
                                     # default below: retinex SSIM 0.32 ->
                                     # 0.505, decom 0.63 -> 0.742 — the
                                     # round-3 quality table in
-                                    # docs/PERFORMANCE.md is the record);
+                                    # docs/PERFORMANCE.md @84fe805 is the record);
                                     # the bilateral is edge-preserving so
                                     # full blend does not smear edges.
                                     # Kernel cost identical (the blend is
@@ -110,15 +110,12 @@ class PipelineConfig:
     denoise_kernel: str = "exp"     # range weight: "exp" (classic Gaussian
                                     # bilateral, the default) or "epan"
                                     # (squared Epanechnikov, transcendental-
-                                    # free — measured perf-neutral on TPU;
-                                    # see ops/denoise.py)
+                                    # free; see ops/denoise.py)
     denoise_taps: str = "sep"       # "sep" (default): separable 3+3-tap
-                                    # bilateral — +37% measured pipeline
-                                    # throughput at measured-identical eval
-                                    # quality (the tap count IS the
-                                    # bilateral's cost on the VPU — see
-                                    # docs/PERFORMANCE.md); "full": the
-                                    # exact 9-tap 3x3 bilateral; "guided":
+                                    # bilateral, measured-identical eval
+                                    # quality at 6 taps instead of 9;
+                                    # "full": the exact 9-tap 3x3
+                                    # bilateral; "guided":
                                     # the guided-filter tail (He et al.,
                                     # radius guided_radius box-mean
                                     # cascade) — the measured quality
@@ -131,7 +128,7 @@ class PipelineConfig:
                                     # receptive radius is 2x this
     # Guided-filter edge/flat variance threshold. 1e-2 measured better than
     # 3e-3 on EVERY method at both radii (retinex r=2 SSIM 0.599 -> 0.636,
-    # decom 0.889 -> 0.892; docs/PERFORMANCE.md guided table) — round 4
+    # decom 0.889 -> 0.892; docs/PERFORMANCE.md @84fe805 guided table) — round 4
     # default change.
     guided_eps: float = 1e-2
                                     # threshold (guide is in [0, 1])
@@ -153,68 +150,27 @@ class PipelineConfig:
                                  # loss — so N=4 loses almost nothing)
 
     # --- execution -----------------------------------------------------------
-    use_pallas: bool = True      # fuse the per-pixel graph into a Pallas kernel
-    stripe_rows: int = 1024      # cap on Pallas stripe height (rows/grid step);
-                                 # actual height is VMEM-budgeted (striping.py)
-    stripe_windowed: Optional[bool] = None
-                                 # True: overlapping input windows come
-                                 # straight off the padded canvas via
-                                 # element-offset BlockSpecs (Pallas's own
-                                 # double-buffered DMA), skipping the XLA
-                                 # extract/merge canvas copies (round 5,
-                                 # VERDICT r4 item 8 — measured +7.6% on
-                                 # the 600x400 headline program, +8.3% on
-                                 # the canvas path, ~flat at 1080p,
-                                 # MINUS 9% at 4K width; bit-exact).
-                                 # False: the round-4 stripes form
-                                 # (extract_stripes + merge_stripes), the
-                                 # A/B reference. None (default): auto —
-                                 # windowed up to 1080p-class widths,
-                                 # stripes beyond
-                                 # (striping.use_windowed).
-    compute_dtype: str = "bfloat16"  # CNN conv compute dtype (the MXU-fed
-                                 # models: curve/fcn/decom). bf16 measured
-                                 # +45% fcn inference at IDENTICAL eval
-                                 # PSNR/SSIM (docs/PERFORMANCE.md); the
-                                 # fused kernels' per-pixel tap math stays
+    use_pallas: bool = True      # run the fused retinex kernel where the
+                                 # backend and its coverage allow
+                                 # (backend.use_kernel)
+    compute_dtype: str = "bfloat16"  # CNN conv compute dtype (curve/fcn/
+                                 # decom); the per-pixel tail math stays
                                  # f32 regardless. Set "float32" for the
-                                 # bit-exact-vs-f32-reference path.
+                                 # f32-reference path.
 
     conv_impl: str = "auto"      # conv-stack lowering for the learned
                                  # models' INFERENCE path:
-                                 # "auto": measured per-method policy
-                                 # (blocks.AUTO_CONV_BANDS; docs/
-                                 # PERFORMANCE.md round-3 conv tables) —
-                                 # "packed" on TPU at small batch (2.7x
-                                 # fcn at batch 8), "xla" at large batch
-                                 # (XLA's conv lowering scales with
-                                 # batch) and off-TPU. No band selects
-                                 # packed12 (a measured e2e negative).
-                                 # "xla": lax.conv_general_dilated as-is.
-                                 # "pallas": dense-9-tap packed GEMM Pallas
-                                 # kernel (kernels/mxu_conv.py) on s2d
-                                 # activations — the MXU fast path (TPU
-                                 # only; training always uses XLA convs).
+                                 # "auto" / "xla": lax.conv_general_dilated
+                                 # as-is (cuDNN on the GPU).
                                  # "gemm": the pure-jnp GEMM reformulation
-                                 # of ops/patch_conv.py — measured SLOWER
-                                 # than "xla" under XLA fusion (slab
-                                 # gathers materialize in HBM); kept as the
-                                 # kernel's reference and fallback.
+                                 # of ops/patch_conv.py.
                                  # "packed": space-to-depth block conv —
-                                 # ONE XLA conv per layer on packed lanes
-                                 # (ops.patch_conv.conv2d_block_xla), 4x
-                                 # lane fill at 4x structural FLOPs;
-                                 # differentiable, runs everywhere.
-                                 # "packed12": the (1, 2) half-packing —
-                                 # 2x lane fill at only 2x structural
-                                 # FLOPs, for the mid-batch regime between
-                                 # packed's small-batch win and xla's
-                                 # large-batch win.
-                                 # "cascade": ONE Pallas kernel chaining
-                                 # the whole dilated conv stack through
-                                 # VMEM line buffers (fcn only — other
-                                 # methods degrade to 'xla'; TPU only).
-                                 # kernels/fcn_cascade.py.
+                                 # ONE XLA conv per layer on packed
+                                 # channels (ops.patch_conv.
+                                 # conv2d_block_xla) at 4x structural
+                                 # FLOPs; differentiable.
+                                 # "packed12": the (1, 2) half-packing at
+                                 # 2x structural FLOPs.
 
     # --- sharding (config 5) -------------------------------------------------
     spatial_shards: int = 1      # >1: shard H across `spatial` mesh axis
@@ -224,13 +180,13 @@ class PipelineConfig:
     # overriding the per-method default — a preset whose quality number was
     # measured with specific weights carries them (round 5: the quality
     # preset's guided tail pairs with guided-in-loss-trained weights; tail
-    # choice is part of the training contract, docs/PERFORMANCE.md).
+    # choice is part of the training contract, docs/PERFORMANCE.md @84fe805).
     # None = the method's default .npz. Explicit model_params still win.
     weights_name: Optional[str] = None
-                                 # (DP inference/serving; the batch-sharded
-                                 # program compiles with no collectives —
-                                 # tests/parallel/test_dp_scaling.py — so n
-                                 # chips run it at ~n x throughput)
+                                 # (data_shards: DP inference/serving; the
+                                 # batch-sharded program compiles with no
+                                 # collectives —
+                                 # tests/parallel/test_dp_scaling.py)
 
     def __post_init__(self):
         if self.method not in _METHODS:
@@ -271,16 +227,14 @@ class PipelineConfig:
             )
         if self.denoise_taps == "guided" and self.guided_eps <= 0:
             raise ValueError("guided_eps must be > 0")
-        if self.conv_impl not in ("auto", "xla", "pallas", "gemm", "packed",
-                                  "packed12", "cascade"):
+        if self.conv_impl not in CONV_IMPLS:
             raise ValueError(
-                "conv_impl must be 'auto', 'xla', 'pallas', 'gemm', "
-                f"'packed', 'packed12' or 'cascade': {self.conv_impl!r}"
+                f"conv_impl must be one of {CONV_IMPLS}: {self.conv_impl!r}"
             )
         if self.curve_downsample not in (1, 2, 4, 8):
             raise ValueError(
                 "curve_downsample must be 1, 2, 4 or 8 (the integer-factor "
-                "bilinear upsample of record and the sharded/striped phase "
+                "bilinear upsample of record and the sharded phase "
                 "alignment need a small even factor)"
             )
         if self.spatial_shards < 1 or self.data_shards < 1:
@@ -302,18 +256,19 @@ class PipelineConfig:
 
 # Named presets mirroring the five benchmark configs (BASELINE.json:6-12).
 PRESETS = {
-    # 1. Single LOL 600x400 image: Retinex decomposition + gamma enhance,
-    #    CPU JAX, parity vs the pure-jnp reference path.
+    # 1. Single LOL 600x400 image: Retinex decomposition + gamma enhance on
+    #    the plain jnp graph, parity vs the reference.
     "config1_single_cpu": PipelineConfig(method="retinex", use_pallas=False),
-    # 2. LOL eval-15 batched inference, fused decode->enhance->encode, 1 core.
+    # 2. LOL eval-15 batched inference, fused decode->enhance->encode.
     "config2_lol_eval": PipelineConfig(method="retinex", use_pallas=True),
-    # 3. Zero-DCE-style curve CNN at 512x512 batch-64 on a v5e chip.
+    # 3. Zero-DCE-style curve CNN at 512x512 batch-64.
     "config3_curve_cnn": PipelineConfig(method="curve", use_pallas=True),
     # 4. 1080p streaming enhancement with double-buffered prefetch.
     "config4_1080p_stream": PipelineConfig(method="retinex", use_pallas=True),
-    # 5. 4K sharded via shard_map across a v5e-8 slice, per-shard denoise.
+    # 5. 4K sharded via shard_map across the 4 devices of one host,
+    #    per-shard denoise.
     "config5_4k_sharded": PipelineConfig(
-        method="retinex", use_pallas=True, spatial_shards=8
+        method="retinex", use_pallas=True, spatial_shards=4
     ),
     # Measured quality frontier (round 5): decomposition head trained with
     # the materialized-relit-image objective THROUGH the guided tail
@@ -321,7 +276,7 @@ PRESETS = {
     # 20.14 dB / 0.921 SSIM / dE 17.9 on eval-15 (round 4's
     # inference-tuned frontier was 19.73 / 0.918 / 18.6; training through
     # the shipping tail bought all three metrics —
-    # docs/PERFORMANCE.md guided-in-loss round-5 section). The
+    # docs/PERFORMANCE.md @84fe805 guided-in-loss round-5 section). The
     # throughput pick stays the default retinex pipeline.
     "quality": PipelineConfig(
         method="decom", denoise_taps="guided", guided_radius=4,

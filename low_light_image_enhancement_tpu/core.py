@@ -1,7 +1,7 @@
 """The enhancement device graph on pre-padded planar images.
 
-This is the *reference implementation of record* (pure jnp): the fused Pallas
-kernels in ``kernels/`` reproduce this math tap-for-tap, and the parity tests
+This is the *reference implementation of record* (pure jnp): the fused
+kernel in ``kernels/`` reproduces this math tap-for-tap, and the parity tests
 compare against these functions. Everything operates on images pre-padded by
 ``MARGIN`` with edge replication (see ``pipeline.pad_planar``), using
 wrap-around (roll) shifts — interior results are identical to edge-clamped
@@ -12,7 +12,7 @@ Boundary convention: the canvas is replicate-padded ONCE from the raw input;
 cascaded windowed stages (blur -> denoise) then filter across that padding.
 This differs in the outermost output pixel ring from running each stage with
 its own edge clamp — both are valid conventions; this one is canonical here
-because it is what a single fused VMEM-resident kernel naturally computes.
+because a fused kernel gets it from clamped loads of the input alone.
 
 Spec: BASELINE.json north_star (normalization -> illumination estimation ->
 reflectance/gamma boost -> curve CNN -> fused denoise + gamma).

@@ -20,8 +20,7 @@ Endpoints:
 
 Spec: BASELINE.json north_star public-API clause ("enhance(image) ->
 image") lifted to a network boundary; the batching semantics live in
-``serving.py`` and are measured in docs/PERFORMANCE.md ("Serving
-dispatcher, isolated").
+``serving.py`` (dispatcher cost: scripts/bench_serving.py).
 """
 
 from __future__ import annotations

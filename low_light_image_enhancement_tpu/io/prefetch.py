@@ -23,10 +23,8 @@ _SENTINEL = object()
 def to_planar(imgs):
     """Host-side HWC -> planar u8 ((..., H, W, 3) -> (..., 3, H, W), C
     contiguous). Run this in a prefetch worker (``transform=``) so the
-    device program skips its HWC->planar transpose pass — the largest
-    single stage of the default 600x400 program (docs/PERFORMANCE.md
-    per-stage table; VERDICT r4 item 2) — and the host copy overlaps
-    device compute on earlier batches."""
+    device program skips its HWC->planar transpose pass and the host copy
+    overlaps device compute on earlier batches."""
     import numpy as np
 
     return np.ascontiguousarray(np.moveaxis(np.asarray(imgs), -1, -3))

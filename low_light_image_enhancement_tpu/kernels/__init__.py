@@ -1,24 +1,13 @@
-"""Pallas/Mosaic TPU kernels — the fused device compute path.
+"""Hand-written GPU kernels (Pallas, Triton route).
 
-Each kernel re-implements the corresponding ``core``/``ops`` math
-tap-for-tap (same coefficients, same accumulation order) so that
-kernel-vs-jnp parity holds to float rounding. The stripe decomposition keeps
-each block VMEM-resident: one HBM read of the input stripe, one HBM write of
-the output stripe, everything in between stays on-chip.
+Each kernel reproduces the corresponding ``core``/``ops`` math tap for tap
+(same coefficients, same accumulation order); the plain ``jax.numpy`` graph
+stays the reference and the path for everything a kernel does not cover.
 """
 
-from low_light_image_enhancement_tpu.kernels.striping import (
-    plan_stripes,
-    extract_stripes,
-    merge_stripes,
+from low_light_image_enhancement_tpu.kernels.fused_enhance import (
+    fused_retinex,
+    kernel_covers,
 )
-from low_light_image_enhancement_tpu.kernels.fused_enhance import fused_retinex
-from low_light_image_enhancement_tpu.kernels.tiled_denoise import tiled_denoise
 
-__all__ = [
-    "plan_stripes",
-    "extract_stripes",
-    "merge_stripes",
-    "fused_retinex",
-    "tiled_denoise",
-]
+__all__ = ["fused_retinex", "kernel_covers"]

@@ -5,10 +5,9 @@ Seven 3x3 convs with U-style skip concatenations; the head emits
 ``ops.curves.apply_curves``. Pure functional: ``init_curve_cnn`` returns a
 param pytree, ``apply_curve_cnn`` is jit/pjit-friendly.
 
-TPU notes: convs run in NHWC (XLA TPU's preferred conv layout, lowered onto
-the MXU); the planar (C,H,W) pipeline layout is transposed at entry/exit.
-Compute dtype is configurable — bfloat16 inputs with float32 accumulation
-(``preferred_element_type``) is the MXU fast path.
+Convs run in NHWC; the planar (C,H,W) pipeline layout is transposed at
+entry/exit. Compute dtype is configurable — bfloat16 inputs with float32
+accumulation (``preferred_element_type``) is the default.
 """
 
 from __future__ import annotations
@@ -84,12 +83,11 @@ def apply_curve_cnn_gemm(
     n_iter: int = 8,
     compute_dtype: jnp.dtype = jnp.float32,
 ) -> jnp.ndarray:
-    """MXU patch-GEMM variant of :func:`apply_curve_cnn` (same signature,
-    same math to f32 rounding). All seven 3x3 convs run as 2x2-output-block
-    GEMMs (K = 16*Cin, N = 4*Cout — exact 128-lane tiles at 32 features) on
-    space-to-depth packed activations; the image is packed once on entry and
-    unpacked once at exit. See ops/patch_conv.py for why this is ~3.6x the
-    MXU utilization of XLA's per-tap conv lowering at these widths."""
+    """Patch-GEMM variant of :func:`apply_curve_cnn` (same signature, same
+    math to f32 rounding). All seven 3x3 convs run as 2x2-output-block
+    GEMMs (K = 16*Cin, N = 4*Cout) on space-to-depth packed activations;
+    the image is packed once on entry and unpacked once at exit
+    (ops/patch_conv.py)."""
     from low_light_image_enhancement_tpu.ops.patch_conv import (
         conv2d_patch_gemm,
         depth_to_space,
@@ -126,58 +124,6 @@ def apply_curve_cnn_gemm(
     return a if batched else a[0]
 
 
-def apply_curve_cnn_pallas(
-    params: Params,
-    x: jnp.ndarray,
-    n_iter: int = 8,
-    compute_dtype: jnp.dtype = jnp.bfloat16,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Pallas MXU variant of :func:`apply_curve_cnn`: the 32/64-channel
-    convs run as patch-GEMM chunk kernels (kernels/mxu_conv.py — the
-    highest measured useful-FLOP rate of every formulation probed); the
-    3-channel stem runs as a plain XLA conv (12-lane slices neither fit
-    the kernel nor cost meaningful MXU time). Inference-only (no VJP)."""
-    from low_light_image_enhancement_tpu.kernels.mxu_conv import (
-        conv2d_patch_mxu,
-    )
-    from low_light_image_enhancement_tpu.models.layers import conv2d
-    from low_light_image_enhancement_tpu.ops.patch_conv import (
-        depth_to_space,
-        pack_patch_weights,
-        space_to_depth,
-    )
-
-    batched = x.ndim == 4
-    if not batched:
-        x = x[None]
-    f = params["c1"]["w"].shape[-1]
-    nhwc = jnp.transpose(x, (0, 2, 3, 1))
-
-    def cv(name, h, groups, act):
-        p = params[name]
-        return conv2d_patch_mxu(
-            h, pack_patch_weights(p["w"], groups=groups), p["b"],
-            groups=groups, act=act, interpret=interpret,
-        )
-
-    p1 = params["c1"]
-    x1 = space_to_depth(
-        jax.nn.relu(conv2d(nhwc, p1["w"], p1["b"], compute_dtype))
-    )
-    x2 = cv("c2", x1, (f,), "relu")
-    x3 = cv("c3", x2, (f,), "relu")
-    x4 = cv("c4", x3, (f,), "relu")
-    x5 = cv("c5", jnp.concatenate([x3, x4], -1), (f, f), "relu")
-    x6 = cv("c6", jnp.concatenate([x2, x5], -1), (f, f), "relu")
-    a = cv("c7", jnp.concatenate([x1, x6], -1), (f, f), "tanh")
-    a = depth_to_space(a).astype(jnp.float32)
-
-    b, h, w, _ = a.shape
-    a = jnp.transpose(a, (0, 3, 1, 2)).reshape(b, n_iter, 3, h, w)
-    return a if batched else a[0]
-
-
 def apply_curve_cnn_packed(
     params: Params,
     x: jnp.ndarray,
@@ -186,12 +132,10 @@ def apply_curve_cnn_packed(
     block: tuple = (2, 2),
 ) -> jnp.ndarray:
     """Space-to-depth block-conv variant of :func:`apply_curve_cnn`: the
-    32-channel core runs as plain XLA convs on packed activations (128 full
-    lanes vs 32 — ops.patch_conv.pack_block_conv_weights), the 3-channel
-    stem as a normal conv. Pure XLA, differentiable; conv_impl='auto'
-    selects it on TPU at small batch (blocks.AUTO_CONV_BANDS), where it
-    measures fastest — XLA's own lowering wins at large batch
-    (docs/PERFORMANCE.md round-3 conv tables)."""
+    32-channel core runs as plain XLA convs on packed activations (128
+    channels vs 32 — ops.patch_conv.pack_block_conv_weights), the 3-channel
+    stem as a normal conv. Pure XLA, differentiable; an explicit
+    ``conv_impl="packed"`` choice."""
     from low_light_image_enhancement_tpu.models.layers import conv2d
     from low_light_image_enhancement_tpu.ops.patch_conv import (
         conv2d_block_xla,

@@ -60,7 +60,7 @@ def apply_decom_net_gemm(
     x: jnp.ndarray,
     compute_dtype: jnp.dtype = jnp.float32,
 ):
-    """MXU patch-GEMM variant of :func:`apply_decom_net` (same signature,
+    """Patch-GEMM variant of :func:`apply_decom_net` (same signature,
     same math to f32 rounding); all five 3x3 convs run as 2x2-output-block
     GEMMs on space-to-depth packed activations (ops/patch_conv.py)."""
     from low_light_image_enhancement_tpu.ops.patch_conv import (
@@ -87,50 +87,6 @@ def apply_decom_net_gemm(
     for i in range(1, 5):
         h = jax.nn.relu(cv(f"c{i}", h))
     out = jax.nn.sigmoid(depth_to_space(cv("c5", h))).astype(jnp.float32)
-    out = jnp.transpose(out, (0, 3, 1, 2))  # (B, 4, H, W)
-    r, l = out[:, :3], out[:, 3:4]
-    return (r, l) if batched else (r[0], l[0])
-
-
-def apply_decom_net_pallas(
-    params: Params,
-    x: jnp.ndarray,
-    compute_dtype: jnp.dtype = jnp.bfloat16,
-    interpret: bool = False,
-):
-    """Pallas MXU variant of :func:`apply_decom_net`: the 32-channel core
-    convs run as patch-GEMM chunk kernels (kernels/mxu_conv.py); the
-    4-channel stem and head run as plain XLA convs (their tiny channel
-    counts neither fit the kernel's lane slices nor cost meaningful MXU
-    time). Inference-only (no VJP)."""
-    from low_light_image_enhancement_tpu.kernels.mxu_conv import (
-        conv2d_patch_mxu,
-    )
-    from low_light_image_enhancement_tpu.models.layers import conv2d
-    from low_light_image_enhancement_tpu.ops.patch_conv import (
-        depth_to_space,
-        pack_patch_weights,
-        space_to_depth,
-    )
-
-    batched = x.ndim == 4
-    if not batched:
-        x = x[None]
-    mx = jnp.max(x, axis=1, keepdims=True)
-    nhwc = jnp.transpose(jnp.concatenate([x, mx], axis=1), (0, 2, 3, 1))
-    p1 = params["c1"]
-    h = jax.nn.relu(conv2d(nhwc, p1["w"], p1["b"], compute_dtype))
-    h = space_to_depth(h)
-    for i in range(2, 5):
-        p = params[f"c{i}"]
-        h = conv2d_patch_mxu(
-            h, pack_patch_weights(p["w"]), p["b"], act="relu",
-            interpret=interpret,
-        )
-    p5 = params["c5"]
-    out = jax.nn.sigmoid(
-        conv2d(depth_to_space(h), p5["w"], p5["b"], compute_dtype)
-    ).astype(jnp.float32)
     out = jnp.transpose(out, (0, 3, 1, 2))  # (B, 4, H, W)
     r, l = out[:, :3], out[:, 3:4]
     return (r, l) if batched else (r[0], l[0])

@@ -5,7 +5,7 @@ A stack of 3x3 convs with exponentially growing dilation (1,2,4,...,1) gives
 a large receptive field at constant cost — the standard architecture for
 approximating whole-image operators with a tiny FCN. Trained supervised on
 (low, high) pairs (``train.train_fcn``), it is the paired-data counterpart to
-the zero-reference curve CNN. Functional init/apply, NHWC convs on the MXU.
+the zero-reference curve CNN. Functional init/apply, NHWC convs.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 import jax
 import jax.numpy as jnp
 
-from low_light_image_enhancement_tpu.models.layers import conv2d
+from low_light_image_enhancement_tpu.models.layers import conv2d, precision_for
 
 Params = Dict[str, Dict[str, jnp.ndarray]]
 
@@ -77,14 +77,11 @@ def apply_fcn_gemm(
 ) -> jnp.ndarray:
     """im2col-GEMM variant of :func:`apply_fcn` (same signature, same math to
     f32 rounding). Every 3x3 layer — dilated or not — runs as three
-    accumulated (M, 3*Cin) @ (3*Cin, Cout) GEMMs (K = 216 at 24 features:
-    ~16% MXU utilization vs ~3.5% for XLA's per-tap lowering; the dilated
-    layers' even dilations preserve pixel phase, so the higher-utilization
-    packed patch-GEMM form can't apply — see ops/patch_conv.py).
-
-    Measured on-chip (docs/PERFORMANCE.md round-3 conv table): SLOWER than
-    XLA's conv end-to-end — XLA materializes the im2col slabs in HBM. Kept
-    as the Pallas kernel's parity reference."""
+    accumulated (M, 3*Cin) @ (3*Cin, Cout) GEMMs (K = 216 at 24 features;
+    the dilated layers' even dilations preserve pixel phase, so the packed
+    patch-GEMM form can't apply — see ops/patch_conv.py). An explicit
+    ``conv_impl="gemm"`` choice; XLA materializes the im2col slabs in
+    device memory."""
     from low_light_image_enhancement_tpu.ops.patch_conv import (
         conv2d_im2col_gemm,
         pack_im2col_weights,
@@ -113,68 +110,7 @@ def apply_fcn_gemm(
             h,
             po["w"][0, 0].astype(compute_dtype),
             preferred_element_type=jnp.float32,
-        )
-        + po["b"].astype(jnp.float32)
-    ).astype(jnp.float32)
-    out = jnp.transpose(out, (0, 3, 1, 2))
-    return out if batched else out[0]
-
-
-def apply_fcn_pallas(
-    params: Params,
-    x: jnp.ndarray,
-    compute_dtype: jnp.dtype = jnp.bfloat16,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Pallas MXU variant of :func:`apply_fcn`: dense-9-tap packed GEMMs
-    (kernels/mxu_conv.py). Even dilations map to block shifts of d/2 with
-    phase-preserving weights; the 24-channel packed lanes (96) pad to 128.
-    Inference-only (no VJP)."""
-    from low_light_image_enhancement_tpu.kernels.mxu_conv import (
-        conv2d_dense9_mxu,
-        pack_dense9_weights,
-    )
-    from low_light_image_enhancement_tpu.ops.patch_conv import (
-        depth_to_space,
-        space_to_depth,
-    )
-
-    from low_light_image_enhancement_tpu.ops.patch_conv import (
-        conv2d_im2col_gemm,
-        pack_im2col_weights,
-    )
-
-    batched = x.ndim == 4
-    if not batched:
-        x = x[None]
-    depth = sum(1 for k in params if k.startswith("c"))
-    dils = _dilations(depth)
-    # 3-channel stem via jnp im2col GEMM (12-lane slices don't repay a
-    # kernel); s2d-pack after it, then the dilated 24-channel stack on the
-    # dense-9 kernel (96 full lanes; even dilations shift blocks by d/2
-    # with phase-preserving weights)
-    p1 = params["c1"]
-    nhwc = jnp.transpose(x, (0, 2, 3, 1)).astype(compute_dtype)
-    h = jax.nn.leaky_relu(
-        conv2d_im2col_gemm(nhwc, pack_im2col_weights(p1["w"]), p1["b"],
-                           compute_dtype, dilation=dils[0]),
-        negative_slope=0.2,
-    )
-    h = space_to_depth(h)
-    for i, dil in enumerate(dils[1:], start=2):
-        p = params[f"c{i}"]
-        h = conv2d_dense9_mxu(
-            h, pack_dense9_weights(p["w"], dilation=dil), p["b"],
-            act="leaky", step=max(1, dil // 2), interpret=interpret,
-        )
-    po = params["out"]
-    hn = depth_to_space(h)
-    out = jax.nn.sigmoid(
-        jnp.einsum(
-            "bhwc,cn->bhwn",
-            hn,
-            po["w"][0, 0].astype(compute_dtype),
-            preferred_element_type=jnp.float32,
+            precision=precision_for(compute_dtype),
         )
         + po["b"].astype(jnp.float32)
     ).astype(jnp.float32)
@@ -234,6 +170,7 @@ def apply_fcn_packed(
             hn,
             po["w"][0, 0].astype(compute_dtype),
             preferred_element_type=jnp.float32,
+            precision=precision_for(compute_dtype),
         )
         + po["b"].astype(jnp.float32)
     ).astype(jnp.float32)

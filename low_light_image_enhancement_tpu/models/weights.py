@@ -1,5 +1,5 @@
 """Flat .npz parameter serialization for shipping small pretrained weights
-inside the repo (orbax handles training checkpoints; npz is the portable
+inside the repo (utils.checkpoint handles training checkpoints; npz is the portable
 distribution format — no directory trees, loads anywhere)."""
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ PRETRAINED = {
     # paired objective with the pipeline's denoise tail INSIDE the loss
     # (train_weights.py --models hybrid --denoise-in-loss), which moved
     # hybrid from 18.9 dB / 0.665 SSIM to 19.27 / 0.728 on eval-15 — see
-    # docs/PERFORMANCE.md "denoise-in-loss" section.
+    # docs/PERFORMANCE.md @84fe805 "denoise-in-loss" section.
     "hybrid": _WEIGHTS_DIR / "curve_hybrid.npz",
     "fcn": _WEIGHTS_DIR / "fcn.npz",
     # Round-5 default: the materialized-relit-image objective (w_relit —
@@ -30,7 +30,7 @@ PRETRAINED = {
     # pipeline actually ships) beats the pure-decomposition round-3
     # weights on the DEFAULT bilateral config on every metric
     # (20.04 dB / 0.898 SSIM / dE 18.0 vs 19.6 / 0.742 — eval matrix,
-    # docs/PERFORMANCE.md guided-in-loss round-5 section). The old set
+    # docs/PERFORMANCE.md @84fe805 guided-in-loss round-5 section). The old set
     # stays addressable as NAMED["decom_v4"].
     "decom": _WEIGHTS_DIR / "decom_relit.npz",
 }
@@ -68,7 +68,7 @@ def load_params(path: Union[str, Path]) -> Dict[str, Any]:
 
 # Shipped weights addressable by NAME (beyond the per-method defaults):
 # "zeroref" is the rehabilitated zero-reference curve recipe of record
-# (scripts/sweep_zeroref.py; docs/PERFORMANCE.md zero-reference section) —
+# (scripts/sweep_zeroref.py; docs/PERFORMANCE.md @84fe805 zero-reference section) —
 # trained with no ground truth, unlike the paired curve_cnn.npz default.
 NAMED = dict(PRETRAINED)
 NAMED["zeroref"] = _WEIGHTS_DIR / "curve_zeroref.npz"

@@ -1,11 +1,10 @@
 """Pure-JAX image ops (the reference implementations of record).
 
-Layout convention: TPU lanes want the trailing axis wide, so every op here
-works on *planar* images — ``(..., H, W)`` single planes or ``(..., 3, H, W)``
+Layout convention: every op here works on *planar* images — ``(..., H, W)`` single planes or ``(..., 3, H, W)``
 RGB — never channels-last. The pipeline transposes at the API boundary.
 
-The fused Pallas kernels in ``..kernels`` re-implement exactly this math;
-kernel parity tests compare against these functions.
+The fused kernel in ``..kernels`` re-implements exactly this math; kernel
+parity tests compare against these functions.
 """
 
 from low_light_image_enhancement_tpu.ops.colorspace import (

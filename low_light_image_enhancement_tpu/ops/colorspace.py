@@ -1,8 +1,7 @@
 """Color-space conversions and u8 normalization (planar layout).
 
 All functions take planar RGB ``(..., 3, H, W)`` float32 in [0, 1] unless
-stated otherwise. Planar keeps H/W on the TPU sublane/lane axes; a trailing
-channel axis of size 3 would waste 125/128 lanes.
+stated otherwise (the planar layout of the whole pipeline).
 
 Spec: BASELINE.json north_star ("RGB->float normalization, color-space
 conversion"). HVI follows the construction of "HVI: A New Color Space for

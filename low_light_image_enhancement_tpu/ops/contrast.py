@@ -49,7 +49,7 @@ def clahe(
     """Contrast-limited adaptive histogram equalization over the last two
     axes of (..., H, W) planes in [0, 1].
 
-    TPU-amenable formulation: per-tile histograms via one static-shape
+    Static-shape formulation: per-tile histograms via one static-shape
     scatter-add, clip + uniform redistribution of the excess, per-tile CDF
     mapping tables, and a bilinear blend of the 4 surrounding tile
     mappings per pixel (four table gathers + bilinear lerp) — no

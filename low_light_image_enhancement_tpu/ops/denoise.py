@@ -6,16 +6,12 @@ are a decreasing function of the per-channel value difference, selectable:
 * ``"exp"``  — Gaussian ``exp(-d^2 / 2 sigma^2)`` (the classic bilateral,
   the default).
 * ``"epan"`` — squared Epanechnikov ``max(0, 1 - d^2 / 6 sigma^2)^2``: same
-  sigma scale and monotone shape, ~4 cheap VPU ops instead of a
-  transcendental. **Measured perf-neutral on TPU** (19.0 vs 19.4 us/img for
-  the fused kernel's denoise stage at 600x400): the bilateral's cost is the
-  27 shifted taps' roll+FMA chains, not the exp — Mosaic's vectorized exp
-  is effectively free behind them. Kept as a documented negative result and
-  a cheaper option for backends where transcendentals do dominate.
+  sigma scale and monotone shape, ~4 cheap ALU ops instead of a
+  transcendental. An option for backends where transcendentals dominate.
 
 The structure (9 static shifts, fixed accumulation order) is mirrored
-exactly by the fused Pallas kernel, which calls ``bilateral_core`` with a
-``pltpu.roll``-based shift function.
+exactly by the fused kernel (``kernels.fused_enhance``), which evaluates
+the same taps from offset loads.
 
 Spec: BASELINE.json north_star ("fused denoise") and config 5 per-shard
 denoise (BASELINE.json:11).
@@ -38,7 +34,7 @@ def _range_weight(d2, inv2s2, kind: str):
     if kind == "epan":
         # (1 - t/3)^2 tracks exp(-t) closely on t in [0, 3] (0.44 vs 0.37
         # at t=1, 0.11 vs 0.14 at t=2) and cuts off where the Gaussian is
-        # ~0.05 — near-identical smoothing at ~1/4 the VPU cost of exp.
+        # ~0.05 — near-identical smoothing without a transcendental.
         u = jnp.maximum(1.0 - d2 * (inv2s2 * (1.0 / 3.0)), 0.0)
         return u * u
     raise ValueError(f"range kernel must be one of {RANGE_KERNELS}: {kind!r}")
@@ -101,9 +97,7 @@ def bilateral_sep_core(x, inv2s2, strength, shift_fn, kind: str = "exp"):
     then along columns of the row-filtered result — 6 shifted taps instead
     of 9. The bilateral is only approximately separable (diagonal neighbors
     are weighted through the intermediate), but at radius 1 the difference
-    is far below the denoise strength's blend; measured +22% kernel
-    throughput on TPU v5e (the tap count IS the cost — see
-    docs/PERFORMANCE.md "What bounds the bilateral")."""
+    is far below the denoise strength's blend."""
     f = x
     for dy, dx in ((1, 0), (0, 1)):
         acc = jnp.zeros_like(f)
@@ -146,8 +140,8 @@ TAPS = ("full", "sep", "guided")
 
 def plane_cores(guide: str, taps: str, guided_radius: int = 2,
                 guided_eps: float = 3e-3):
-    """(single-plane core, joint core) pair for a (guide, taps) choice —
-    the same functions the fused Pallas kernels call per stripe. Every core
+    """(single-plane core, joint core) pair for a (guide, taps) choice.
+    Every core
     has the uniform signature ``core(x_or_planes, inv2s2, strength,
     shift_fn, kind)``; the guided cores (taps="guided") bind their radius
     and eps here and ignore the bilateral's ``inv2s2``/``kind``."""
@@ -179,8 +173,7 @@ def denoise_planar(x, inv2s2, strength, shift_fn, kind: str = "exp",
                    guide: str = "perchannel", taps: str = "full",
                    guided_radius: int = 2, guided_eps: float = 3e-3):
     """Dispatch on (guide, taps) for a planar (..., 3, H, W) array. The
-    shared entry used by the pipeline/core/video jnp paths (the Pallas
-    kernels call the cores directly on their per-plane layout)."""
+    shared entry used by the pipeline/core/video jnp paths."""
     core1, corej = plane_cores(guide, taps, guided_radius, guided_eps)
     if guide == "perchannel":
         return core1(x, inv2s2, strength, shift_fn, kind)
@@ -209,7 +202,7 @@ def bilateral_denoise(
     kind: range-weight kernel, "exp" or "epan" (module docstring).
     guide: "perchannel" weights, or "luma" for the joint bilateral.
     taps: "full" 3x3 (9 taps) or "sep" separable approximation (3+3 taps,
-      +22% measured kernel throughput — ``bilateral_sep_core``).
+      ``bilateral_sep_core``).
     """
     if strength == 0.0:
         return x

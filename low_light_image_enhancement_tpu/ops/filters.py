@@ -1,10 +1,9 @@
 """Windowed-filter building blocks shared by the jnp path and Pallas kernels.
 
-Everything here is expressed as sums of 2-D shifts so that the fused Pallas
-kernel (``..kernels.fused_enhance``) can reproduce the math with ``pltpu.roll``
-instruction-for-instruction: same taps, same accumulation order, same
-coefficients. That shared structure is what keeps the kernel-vs-jnp parity
-tests at ~1e-6.
+Everything here is expressed as sums of 2-D shifts so that the fused kernel
+(``..kernels.fused_enhance``) can reproduce the math from offset loads: same
+taps, same accumulation order, same coefficients. That shared structure is
+what keeps the kernel-vs-jnp parity tests exact up to u8 rounding ties.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ def roll2d(x: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
     """Circular shift over the last two axes: out[y, x] = in[y-dy, x-dx].
 
     Wrap-around semantics — callers must pre-pad by the filter margin and
-    crop, exactly like the Pallas kernel does with ``pltpu.roll``.
+    crop.
     """
     if dy:
         x = jnp.roll(x, dy, axis=-2)
@@ -64,8 +63,7 @@ def upsample_int(x, ds: int, axis: int, shift_fn):
     """Integer-factor bilinear upsample along ``axis`` (half-pixel grid —
     numerically ~1 ulp from ``jax.image.resize(method='bilinear')``, and THE
     upsample of record for curve maps): repeat + two shifts + per-phase
-    blend, so the fused Pallas kernel reproduces it with ``pltpu.roll``
-    shifts instruction-for-instruction. ``ds`` must be even (or 1).
+    blend. ``ds`` must be even (or 1).
 
     out[i] = (1-f)*rep[i - ds/2] + f*rep[i + ds/2], rep[i] = x[i // ds],
     f depending only on i mod ds — which is what makes shard-local and
@@ -110,8 +108,8 @@ def upsample_phase(shape2d, ds: int, axis2d: int, dtype) -> jnp.ndarray:
 def separable_blur(x, radius, sigma, shift_fn):
     """Separable Gaussian blur as two tap loops over ``shift_fn``.
 
-    This is THE blur of the framework: every consumer (jnp core, Pallas
-    kernels, SSIM window, video path) calls it with its own shift function
+    This is THE blur of the framework: every consumer (jnp core, SSIM
+    window, video path) calls it with its own shift function
     so taps and accumulation order — and therefore kernel-vs-jnp parity —
     stay identical everywhere by construction.
     """

@@ -4,8 +4,8 @@ Style Structure in Fourier Domain", PAPERS.md:7).
 The luminance of a low-light image lives mostly in the FFT *amplitude*
 spectrum while structure lives in *phase*; scaling amplitude brightens
 without disturbing edges. ``fourier_amplitude_boost`` implements that
-decoupled adjustment as a pure-jnp op (XLA lowers jnp.fft to TPU-native
-FFT). Useful both as a standalone enhancement and as a feature-space block
+decoupled adjustment as a pure-jnp op (XLA lowers jnp.fft to the
+backend's FFT). Useful both as a standalone enhancement and as a feature-space block
 for learned models.
 """
 

@@ -10,7 +10,7 @@ replicate-free SAME semantics.
 
 Spec: BASELINE.json north_star "fused denoise" family; this is the
 measured-alternative pattern the bilateral variants follow
-(docs/PERFORMANCE.md "What bounds the bilateral") — kept as a public op;
+(docs/PERFORMANCE.md @84fe805 "What bounds the bilateral") — kept as a public op;
 the fused Pallas tail ships the bilateral.
 """
 
@@ -86,16 +86,14 @@ def guided_denoise(
 
 
 # --------------------------------------------------------------------- #
-# Shift-based cores (the padded-canvas / in-kernel form, round 4)
+# Shift-based cores (the padded-canvas form)
 # --------------------------------------------------------------------- #
 # The cumsum integral-image form above is the O(1)-in-radius public op with
-# true edge means. The pipeline's fused kernels and its padded-canvas jnp
-# reference instead run on a replicate-padded canvas where every consumed
-# pixel's window is fully populated — there the box mean is a plain
-# separable (2r+1)-tap average expressed through the SAME ``shift_fn``
-# convention as the bilateral cores (``pltpu.roll`` in-kernel, ``jnp.roll``
-# on the canvas reference), so kernel-vs-jnp parity is tap-for-tap. The
-# canvas margin must cover the cascade's receptive radius 2r
+# true edge means. The pipeline instead runs on a replicate-padded canvas
+# where every consumed pixel's window is fully populated — there the box
+# mean is a plain separable (2r+1)-tap average expressed through the SAME
+# ``shift_fn`` convention as the bilateral cores (``jnp.roll`` on the
+# canvas). The canvas margin must cover the cascade's receptive radius 2r
 # (``config.canvas_margin``).
 
 

@@ -12,6 +12,7 @@ does for its other windowed ops).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from low_light_image_enhancement_tpu.ops.filters import roll2d
@@ -66,7 +67,8 @@ def gray_world_gains(rgb: jnp.ndarray) -> jnp.ndarray:
 def color_correction(rgb: jnp.ndarray, ccm) -> jnp.ndarray:
     """3x3 color-correction matrix on planar RGB: out_c = sum_k M[c,k]*in_k."""
     ccm = jnp.asarray(ccm, rgb.dtype)
-    out = jnp.einsum("ck,...khw->...chw", ccm, rgb)
+    out = jnp.einsum("ck,...khw->...chw", ccm, rgb,
+                     precision=jax.lax.Precision.HIGHEST)  # no TF32
     return jnp.clip(out, 0.0, 1.0)
 
 

@@ -1,24 +1,17 @@
-"""Patch-GEMM convolution: MXU-shaped reformulation of small-channel 3x3 convs.
+"""Patch-GEMM convolution: GEMM-shaped reformulation of small-channel 3x3
+convs.
 
-Why this exists (VERDICT r2 item 1): XLA lowers a 3x3 conv with C=24..32
-channels to per-tap matmuls of shape (M, C) @ (C, C) — at C=24 that uses
-24x24 of the 128x128 systolic array, ~3.5% utilization, which is exactly the
-measured fcn/decom/curve-ds1 shortfall (452/549/683 img/s vs the >=1000
-north star, docs/PERFORMANCE.md).
+XLA lowers a 3x3 conv with C=24..32 channels to per-tap matmuls of shape
+(M, C) @ (C, C). The reformulation here computes each 2x2 block of output
+pixels as ONE GEMM row over its 4x4 input patch:
 
-The fix is a *layout* reformulation, not a faster conv algorithm: compute
-each 2x2 block of output pixels as ONE GEMM row over its 4x4 input patch.
+- M = number of 2x2 output blocks (B * H/2 * W/2).
+- K = 16 * Cin (the 4x4 patch, all input channels).
+- N = 4 * Cout (four output pixels * channels).
 
-- M = number of 2x2 output blocks (B * H/2 * W/2) — streams through the MXU.
-- K = 16 * Cin (the 4x4 patch, all input channels). Cin=32 -> K=512: four
-  exact 128-lane passes. Cin=24 -> K=384: three exact passes.
-- N = 4 * Cout (four output pixels * channels). Cout=32 -> N=128: exact.
-
-Utilization becomes K_fill * N_fill ~= 75..100% at the cost of a 16/9 FLOP
-inflation (the densified patch weights carry structural zeros: each output
-pixel only consumes 9 of the 16 patch pixels), for a net ~3.1x (C=24) to
-~3.6x (C=32) speed-of-light gain over XLA's per-tap lowering — before
-counting XLA's additional overheads.
+at the cost of a 16/9 FLOP inflation (the densified patch weights carry
+structural zeros: each output pixel only consumes 9 of the 16 patch
+pixels).
 
 Activations live in space-to-depth *packed* layout (B, H/2, W/2, 4C),
 feature index = phase-major (p * C + c, p = py*2+px), through the whole conv
@@ -26,17 +19,14 @@ stack: the patch gather for the next layer reads phase slices of the packed
 previous output directly, so images are packed once on entry and unpacked
 once at exit.
 
-Dilated layers (the fcn stack) cannot lane-fill this way for even dilation
-(taps at +-d preserve pixel phase, so there is no cross-phase mixing to
-densify); they use the classic im2col GEMM instead (K = 9*Cin, N = Cout,
-~16% utilization — still ~4x XLA's per-tap form). `conv2d_gemm` picks the
-right form per (dilation, parity).
+Dilated layers (the fcn stack) cannot be densified this way for even
+dilation (taps at +-d preserve pixel phase, so there is no cross-phase
+mixing); they use the classic im2col GEMM instead (K = 9*Cin, N = Cout).
+`conv2d_gemm` picks the right form per (dilation, parity).
 
-Everything here is pure jnp — the reference of record for the Pallas
-patch-GEMM kernel (kernels/mxu_conv.py) and directly jit-able as an XLA
-fallback. Numerics: contraction order differs from lax.conv, so outputs
-match to f32 rounding (~1e-6), not bit-exactly; see tests/unit/
-test_patch_conv.py.
+Everything here is pure jnp and directly jit-able. Numerics: contraction
+order differs from lax.conv, so outputs match to f32 rounding (~1e-6), not
+bit-exactly; see tests/unit/test_patch_conv.py.
 """
 
 from __future__ import annotations
@@ -299,19 +289,16 @@ def pack_block_conv_weights(
     """(3, 3, Cin, Cout) -> (3, 3, P*Cin, P*Cout) space-to-depth conv
     weights, P = block_h * block_w phases.
 
-    The dense-9-tap reformulation (kernels/mxu_conv.pack_dense9_weights)
-    expressed as a plain 3x3 conv over PACKED activations: tap (by, bx) is a
+    The dense-9-tap reformulation expressed as a plain 3x3 conv over PACKED
+    activations: tap (by, bx) is a
     block shift, and the per-tap (P*Cin, P*Cout) matrix carries the
     (in-phase -> out-phase) routing as weight structure (per-axis rules in
     :func:`_axis_tap`; even dilation d runs packed rhs_dilation d/block).
-    Lane utilization rises from Cin/128 to P*Cin/128 at a P-times
-    structural-FLOP inflation — block (2,2) wins at small batch (<32),
-    the (1,2) half-packing targets the mid-batch regime (2x fill at only
-    2x FLOPs); XLA's own lowering wins at large batch (measured crossover:
-    docs/PERFORMANCE.md round-3 conv tables). Row layout matches the packed
+    Channel width rises from Cin to P*Cin at a P-times structural-FLOP
+    inflation; the (1,2) half-packing costs 2x FLOPs. Row layout matches the packed
     activation layout ([group][phase][ci]); columns are output-phase-major,
     matching :func:`depth_to_space`. Differentiable (pure slice/concat
-    packing + one lax.conv), unlike the Pallas kernels.
+    packing + one lax.conv).
     """
     w = jnp.asarray(w)
     _, _, cin, cout = w.shape
@@ -363,6 +350,8 @@ def conv2d_block_xla(
     """
     from jax import lax
 
+    from low_light_image_enhancement_tpu.models.layers import precision_for
+
     steps = (step, step) if isinstance(step, int) else tuple(step)
     phases = wk.shape[3] // b.shape[0]
     y = lax.conv_general_dilated(
@@ -372,6 +361,7 @@ def conv2d_block_xla(
         padding="SAME",
         rhs_dilation=steps,
         dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=precision_for(compute_dtype),
     )
     return y + pack_bias(b, phases).astype(compute_dtype)
 

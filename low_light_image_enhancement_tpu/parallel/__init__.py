@@ -1,5 +1,5 @@
-"""Multi-chip execution: mesh construction, batch sharding, spatial
-sharding with ICI halo exchange (BASELINE.json config 5)."""
+"""Multi-device execution: mesh construction, batch sharding, spatial
+sharding with halo exchange (BASELINE.json config 5)."""
 
 from low_light_image_enhancement_tpu.parallel.sharding import (
     make_mesh,

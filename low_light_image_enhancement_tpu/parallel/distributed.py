@@ -1,7 +1,6 @@
 """Multi-host execution (SURVEY.md §5 "distributed communication backend"):
-``jax.distributed`` over DCN for process coordination, XLA collectives for
-data. There is no custom transport layer — the TPU-native stack IS the
-backend (ICI within a slice, DCN across hosts).
+``jax.distributed`` for process coordination, XLA collectives for data
+(NCCL between GPUs). There is no custom transport layer.
 """
 
 from __future__ import annotations
@@ -18,9 +17,9 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Join the multi-process runtime. On TPU pods all arguments are
-    auto-detected from the environment; pass them explicitly for CPU/GPU
-    clusters or local multi-process tests."""
+    """Join the multi-process runtime. Pass every argument explicitly
+    (``coordinator_address`` as ``host:port``) unless a cluster manager
+    that JAX detects provides them."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

@@ -6,9 +6,8 @@ top/bottom it needs edge replication instead — exactly reproducing the
 single-device padded-canvas semantics, so spatially-sharded output is
 bit-identical to single-device output.
 
-The exchange is a pair of ``lax.ppermute`` shifts over the ICI ring (the
-TPU-native replacement for the halo sends a NCCL/MPI stack would do —
-SURVEY.md §5).
+The exchange is a pair of ``lax.ppermute`` shifts, which XLA hands to the
+collective library (NCCL on GPUs — SURVEY.md §5).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Mesh construction and sharded execution wrappers.
 
-TPU-native scaling (SURVEY.md §5): a 2-D ``Mesh`` with a ``data`` axis
-(batch parallelism) and a ``spatial`` axis (image rows, for frames too large
-or too latency-sensitive for one chip — BASELINE.json config 5). XLA
-collectives over ICI do all communication: ``ppermute`` halo exchange for
-windowed filters, automatic gradient ``psum`` for sharded training.
+A flat 2-D ``Mesh`` with a ``data`` axis (batch parallelism) and a
+``spatial`` axis (image rows, for frames too large or too latency-sensitive
+for one device — BASELINE.json config 5). The devices of one host are
+joined all to all, so the mesh follows the algorithm alone. XLA collectives
+do all communication: ``ppermute`` halo exchange for windowed filters,
+automatic gradient ``psum`` for sharded training.
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ from jax import shard_map
 
 from low_light_image_enhancement_tpu.config import PipelineConfig
 from low_light_image_enhancement_tpu.config import canvas_margin
-from low_light_image_enhancement_tpu.core import MARGIN, enhance_core_padded
+from low_light_image_enhancement_tpu.core import enhance_core_padded
 from low_light_image_enhancement_tpu.kernels.fused_enhance import fused_retinex
-from low_light_image_enhancement_tpu.kernels.striping import plan_stripes
+from low_light_image_enhancement_tpu.ops.colorspace import (
+    normalize_u8,
+    quantize_u8,
+)
 from low_light_image_enhancement_tpu.parallel.halo import halo_pad_local
 
 
@@ -69,16 +73,15 @@ def enhance_spatial_sharded(
     cfg: PipelineConfig,
     mesh: Mesh,
     model_params=None,
-    use_pallas: bool = False,
+    use_kernel: bool = False,
     interpret: bool = False,
 ) -> jnp.ndarray:
     """Spatially-sharded enhance (config 5: per-shard denoise), any method.
 
     Args:
-      x: (B, 3, H, W) planar batch — float32 in [0, 1], or uint8 (for
-        retinex this is the fast path: halos exchange u8 rows over ICI at
-        1/4 the bytes and each shard runs the fused u8 kernel, requiring
-        ``use_pallas=True``; learned methods convert at the boundary).
+      x: (B, 3, H, W) planar batch — float32 in [0, 1], or uint8 (halos
+        then exchange u8 rows at 1/4 the bytes; each shard converts at its
+        own boundary, or runs the fused u8 kernel when ``use_kernel``).
       mesh: mesh with a "spatial" axis; rows shard across it, batch across
         "data". Output is bit-identical to the single-device path: for
         retinex the halo exchange reproduces the padded-canvas rows, for
@@ -96,39 +99,28 @@ def enhance_spatial_sharded(
                 "EnhancePipeline._default_params(cfg, seed) or trained "
                 "weights); only 'retinex' runs weight-free"
             )
-        return _enhance_learned_sharded(
-            x, cfg, mesh, model_params, use_pallas, interpret
-        )
-    if x.dtype == jnp.uint8 and not use_pallas:
-        raise ValueError("uint8 sharded path requires use_pallas=True")
+        return _enhance_learned_sharded(x, cfg, mesh, model_params)
+    u8_io = x.dtype == jnp.uint8
+    if use_kernel and not u8_io:
+        raise ValueError("the fused kernel takes uint8 input")
     n_sp = mesh.shape["spatial"]
     b, c, h, w = x.shape
     m = canvas_margin(cfg)
     hl = _round_up(-(-h // n_sp), 8)  # rows per shard
     h_core = n_sp * hl
-    wp = _round_up(w + 2 * m, 128)
-    xc = jnp.pad(
-        x, ((0, 0), (0, 0), (0, h_core - h), (m, wp - w - m)), mode="edge"
-    )
+    xc = jnp.pad(x, ((0, 0), (0, 0), (0, h_core - h), (m, m)), mode="edge")
 
-    def local_fn(xl):  # (B/nd, 3, hl, wp) per device
-        canvas = halo_pad_local(xl, m, "spatial")  # (.., hl + 2m, wp)
-        if use_pallas:
-            from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-                retinex_plan_bytes_per_px,
-            )
-
-            plan = plan_stripes(hl, wp - 2 * m, m, cfg.stripe_rows,
-                                bytes_per_px=retinex_plan_bytes_per_px(cfg))
-            extra = plan.padded_h - (hl + 2 * m)
-            if extra:
-                canvas = jnp.pad(
-                    canvas, ((0, 0), (0, 0), (0, extra), (0, 0)), mode="edge"
-                )
-            out = fused_retinex(canvas, cfg, plan, interpret=interpret)
-            return out[..., :hl, :]
-        yp = enhance_core_padded(canvas, cfg)
-        return yp[..., m : m + hl, :]
+    def local_fn(xl):  # (B/nd, 3, hl, w + 2m) per device
+        canvas = halo_pad_local(xl, m, "spatial")  # (.., hl + 2m, w + 2m)
+        if use_kernel:
+            # the kernel clamps at the canvas edge; the m-px margin keeps
+            # every output row it returns clear of that edge
+            out = fused_retinex(canvas, cfg, interpret=interpret)
+        else:
+            yp = enhance_core_padded(normalize_u8(canvas) if u8_io
+                                     else canvas, cfg)
+            out = quantize_u8(yp) if u8_io else yp
+        return out[..., m : m + hl, :]
 
     sharded = shard_map(
         local_fn,
@@ -136,8 +128,9 @@ def enhance_spatial_sharded(
         in_specs=P("data", None, "spatial", None),
         out_specs=P("data", None, "spatial", None),
         # pallas_call's out_shape carries no varying-mesh-axes annotation;
-        # skip the vma check (the specs above fully describe the layout).
-        check_vma=False,
+        # skip the vma check for the fused kernel (the specs above fully
+        # describe the layout).
+        check_vma=not use_kernel,
     )
     out_core = sharded(xc)
     return out_core[..., :h, m : m + w]
@@ -148,8 +141,6 @@ def _enhance_learned_sharded(
     cfg: PipelineConfig,
     mesh: Mesh,
     model_params,
-    use_pallas: bool,
-    interpret: bool,
 ) -> jnp.ndarray:
     """Spatial sharding of the learned methods: per-shard
     ``blocks.enhance_learned_block`` with ppermute halos sized to the net's
@@ -164,9 +155,8 @@ def _enhance_learned_sharded(
         learned_halo,
     )
 
-    # u8 input flows through as u8: halos exchange u8 rows over ICI (1/4 the
-    # bytes) and the block converts at its own boundary (in-kernel on the
-    # fused curve/hybrid tail).
+    # u8 input flows through as u8: halos exchange u8 rows (1/4 the bytes)
+    # and the block converts at its own boundary.
     n_sp = mesh.shape["spatial"]
     b, c, h, w = x.shape
     m = canvas_margin(cfg)
@@ -180,16 +170,12 @@ def _enhance_learned_sharded(
     def local_fn(xl, params):  # (B/nd, 3, hl, wp) per device
         xb = halo_pad_local(xl, halo, "spatial")
         row0 = jax.lax.axis_index("spatial") * hl - halo
-        return enhance_learned_block(
-            xb, cfg, params, row0, h, w,
-            use_pallas=use_pallas, interpret=interpret,
-        )
+        return enhance_learned_block(xb, cfg, params, row0, h, w)
 
     sharded = shard_map(
         local_fn,
         mesh=mesh,
         in_specs=(P("data", None, "spatial", None), P()),
         out_specs=P("data", None, "spatial", None),
-        check_vma=False,
     )
     return sharded(xc, model_params)[..., :h, m : m + w]

@@ -3,7 +3,7 @@
 A single high-resolution stream (e.g. one 4K feed) whose frames are too
 large or too latency-sensitive for one chip: rows shard over the mesh's
 ``spatial`` axis exactly like ``enhance_spatial_sharded`` (ppermute halo
-exchange, u8 rows over ICI), while each shard keeps the EMA temporal
+exchange of u8 rows), while each shard keeps the EMA temporal
 carry for its OWN rows — the carry never moves between devices, so the
 only per-frame communication is the same halo exchange the stateless
 sharded path already pays.
@@ -54,16 +54,12 @@ class SpatialShardedVideoEnhancer(_VideoBase):
     def __init__(self, mesh: Mesh,
                  config: PipelineConfig = PipelineConfig(),
                  alpha: float = 0.3,
-                 model_params: Optional[Dict[str, Any]] = None,
-                 force_jnp: bool = False,
-                 pallas_interpret: bool = False,
-                 ema_in_kernel: Optional[bool] = None):
+                 model_params: Optional[Dict[str, Any]] = None):
         if "spatial" not in mesh.axis_names:
             raise ValueError(
                 f"mesh needs a 'spatial' axis, has {mesh.axis_names}")
         self.mesh = mesh
-        self._init_common(config, alpha, model_params, force_jnp,
-                          pallas_interpret, ema_in_kernel=ema_in_kernel)
+        self._init_common(config, alpha, model_params)
 
     # reset() and carry_bytes come from _VideoBase: _carry_shape here is the
     # full (n_shards, ...) stack incl. the per-shard halo overlap rows.
@@ -76,15 +72,9 @@ class SpatialShardedVideoEnhancer(_VideoBase):
         )
 
         self._shape = (h, w)
-        # batch=1 resolution, same contract as the other video classes:
-        # the conv impl must not depend on the shard count.
-        cfg = resolve_conv_impl(
-            self.config, use_pallas=self._use_pallas,
-            interpret=self._pallas_interpret, batch=1,
-        )
+        cfg = resolve_conv_impl(self.config)
         self._resolved_cfg = cfg
         alpha, params = self.alpha, self.model_params
-        use_pallas, interp = self._use_pallas, self._pallas_interpret
         mesh = self.mesh
         n_sp = mesh.shape["spatial"]
         m = canvas_margin(cfg)
@@ -106,9 +96,7 @@ class SpatialShardedVideoEnhancer(_VideoBase):
             xb = halo_pad_local(xl, halo, "spatial")
             row0 = jax.lax.axis_index("spatial") * hl - halo
             (flag2, carry2), y = video_step(
-                (flag, carry_l[0]), xb, cfg, alpha, params, h, w,
-                use_pallas=use_pallas, interpret=interp, row0=row0,
-                ema_in_kernel=self.ema_in_kernel,
+                (flag, carry_l[0]), xb, cfg, alpha, params, h, w, row0=row0,
             )
             return flag2, carry2[None], y
 

@@ -1,9 +1,9 @@
 """Pipeline assembly: the public ``enhance`` API over the compiled graph.
 
 Responsibilities (SURVEY.md L3): layout conversion at the API boundary
-(u8 HWC <-> planar f32), hardware-aligned edge padding, jit-cache discipline
-(one compile per (batch, H, W, config) bucket), and dispatch between the
-fused Pallas path (TPU) and the pure-jnp reference path (any backend).
+(u8 HWC <-> planar f32), edge padding, jit-cache discipline (one compile
+per (batch, H, W, config) bucket), and dispatch between the fused retinex
+kernel and the plain ``jax.numpy`` graph (``backend.use_kernel``).
 """
 
 from __future__ import annotations
@@ -16,16 +16,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from low_light_image_enhancement_tpu import backend
 from low_light_image_enhancement_tpu.config import (
     PipelineConfig,
     canvas_margin,
 )
-from low_light_image_enhancement_tpu.core import MARGIN, illumination_boost
+from low_light_image_enhancement_tpu.core import enhance_core_padded
 from low_light_image_enhancement_tpu.kernels.fused_enhance import fused_retinex
-from low_light_image_enhancement_tpu.kernels.striping import (
-    StripePlan,
-    plan_stripes,
-)
 from low_light_image_enhancement_tpu.models.curve_cnn import init_curve_cnn
 from low_light_image_enhancement_tpu.ops.colorspace import (
     normalize_u8,
@@ -33,14 +30,10 @@ from low_light_image_enhancement_tpu.ops.colorspace import (
 )
 
 
-def pad_planar(x: jnp.ndarray, plan: StripePlan, h: int, w: int) -> jnp.ndarray:
-    """Edge-replicate pad (..., C, H, W) to the plan's aligned canvas, with
-    exactly ``margin`` rows/cols before the image origin."""
-    m = plan.margin
-    pad = [(0, 0)] * (x.ndim - 2) + [
-        (m, plan.padded_h - h - m),
-        (m, plan.padded_w - w - m),
-    ]
+def pad_planar(x: jnp.ndarray, margin: int) -> jnp.ndarray:
+    """Edge-replicate pad (..., C, H, W) by ``margin`` rows/cols per side:
+    the canvas the plain graph filters with wrap-around shifts."""
+    pad = [(0, 0)] * (x.ndim - 2) + [(margin, margin), (margin, margin)]
     return jnp.pad(x, pad, mode="edge")
 
 
@@ -96,25 +89,19 @@ def _enhance_u8_batch(
     model_params: Optional[Dict[str, Any]],
     *,
     cfg: PipelineConfig,
-    plan: StripePlan,
-    use_pallas: bool,
-    pallas_interpret: bool,
+    use_kernel: bool,
+    interpret: bool,
     planar_io: bool = False,
 ) -> jnp.ndarray:
     """Traced body: (B, H, W, 3) u8 -> (B, H, W, 3) u8 enhanced.
 
-    ``planar_io=True`` takes and returns (B, 3, H, W) u8 instead: the
-    HWC<->planar transpose passes — the largest single device cost of the
-    default path (7.7 of 20.7 us/img at 600x400, docs/PERFORMANCE.md
-    per-stage table) — vanish from the device program. The HWC boundary is
-    only obligatory at decode/encode, so streaming/chained workloads stage
-    planar on the host (prefetch workers) and keep frames planar across
-    device steps (VERDICT r4 item 2)."""
+    ``planar_io=True`` takes and returns (B, 3, H, W) u8 instead, so the
+    HWC<->planar transposes leave the device program (streaming workloads
+    stage planar on the host)."""
     if planar_io:
         _, _, h, w = imgs_u8.shape
     else:
         _, h, w, _ = imgs_u8.shape
-    m = plan.margin
 
     def to_planar(x):
         return x if planar_io else jnp.transpose(x, (0, 3, 1, 2))
@@ -123,29 +110,12 @@ def _enhance_u8_batch(
         return y if planar_io else jnp.transpose(y, (0, 2, 3, 1))
 
     if cfg.method == "retinex":
-        if use_pallas:
-            # u8 end-to-end fast path: pad/stripe in u8, normalize + quantize
-            # inside the fused kernel -> ~5x less HBM traffic than f32
-            # staging.
-            xpu = pad_planar(to_planar(imgs_u8), plan, h, w)
-            canvas = fused_retinex(xpu, cfg, plan, interpret=pallas_interpret)
-            return from_planar(canvas[:, :, :h, m : m + w])
-
-        x = normalize_u8(to_planar(imgs_u8))  # planar f32
-        xp = pad_planar(x, plan, h, w)
-        yp = illumination_boost(xp, cfg)
-        if cfg.denoise_strength > 0.0:
-            from low_light_image_enhancement_tpu.ops.denoise import (
-                denoise_planar,
-            )
-            from low_light_image_enhancement_tpu.ops.filters import roll2d
-
-            inv2s2 = 1.0 / (2.0 * cfg.denoise_sigma * cfg.denoise_sigma)
-            yp = denoise_planar(yp, inv2s2, cfg.denoise_strength, roll2d,
-                                cfg.denoise_kernel, cfg.denoise_guide,
-                                cfg.denoise_taps, cfg.guided_radius,
-                                cfg.guided_eps)
-        y = jnp.clip(yp, 0.0, 1.0)[:, :, m : m + h, m : m + w]
+        if use_kernel:
+            return from_planar(fused_retinex(to_planar(imgs_u8), cfg,
+                                             interpret=interpret))
+        m = canvas_margin(cfg)
+        xp = pad_planar(normalize_u8(to_planar(imgs_u8)), m)
+        y = enhance_core_padded(xp, cfg)[:, :, m : m + h, m : m + w]
         return from_planar(quantize_u8(y))
 
     # Learned methods (curve / hybrid / fcn / decom): the block graph of
@@ -162,16 +132,16 @@ def _enhance_u8_batch(
     # curve ds=4 at 600x400 this cuts CNN+tail rows 528->464.
     halo = single_block_halo(cfg)
     h_core, wp = block_geometry(cfg, h, w)
-    # u8 block end-to-end: normalization happens inside the block (in-kernel
-    # on the fused curve/hybrid tail), quantization on the way out.
+    m = canvas_margin(cfg)
+    # u8 block end-to-end: normalization happens inside the block,
+    # quantization on the way out.
     xb = jnp.pad(
         to_planar(imgs_u8),
         ((0, 0), (0, 0), (halo, halo + h_core - h), (m, wp - w - m)),
         mode="edge",
     )
     yb = enhance_learned_block(
-        xb, cfg, model_params, row0=-halo, h=h, w=w,
-        use_pallas=use_pallas, interpret=pallas_interpret, halo=halo,
+        xb, cfg, model_params, row0=-halo, h=h, w=w, halo=halo,
     )
     return from_planar(yb[..., :h, m : m + w])
 
@@ -199,6 +169,9 @@ class EnhancePipeline:
         for "curve"/"hybrid", the FCN enhancer for "fcn"; freshly initialized
         from ``rng_seed`` when omitted.
 
+        ``force_jnp`` pins the plain graph; ``pallas_interpret`` runs the
+        fused kernel under the Pallas interpreter (``backend.use_kernel``).
+
         ``bucket``: optional size granularity. When set, inputs are
         edge-padded up to multiples of ``bucket`` before compilation and the
         output is cropped back — so a stream of varying image sizes hits a
@@ -211,11 +184,13 @@ class EnhancePipeline:
         if model_params is None:
             model_params = self._default_params(config, rng_seed)
         self.model_params = model_params
-        backend = jax.default_backend()
-        self._use_pallas = config.use_pallas and not force_jnp and (
-            backend == "tpu" or pallas_interpret
-        )
-        self._pallas_interpret = pallas_interpret and backend != "tpu"
+        self._use_kernel = backend.use_kernel(config, force_jnp=force_jnp,
+                                              interpret=pallas_interpret)
+        self._interpret = pallas_interpret
+        if config.data_shards > 1:
+            backend.require_devices(config.data_shards, "data_shards")
+        if config.spatial_shards > 1:
+            backend.require_devices(config.spatial_shards, "spatial_shards")
         self._cache: Dict[Tuple[int, int, int], Any] = {}
         # Guards cache fills under concurrent callers (e.g. HTTP worker
         # threads sharing one pipeline): without it, two first-call threads
@@ -278,26 +253,16 @@ class EnhancePipeline:
         key = (b, h, w, planar_io)
         fn = self._cache.get(key)
         if fn is None:
-            from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-                retinex_plan_bytes_per_px,
-            )
-
             with self._cache_lock:
                 fn = self._cache.get(key)
                 if fn is not None:
                     return fn
-                plan = plan_stripes(
-                    h, w, canvas_margin(self.config),
-                    self.config.stripe_rows,
-                    bytes_per_px=retinex_plan_bytes_per_px(self.config),
-                )
                 fn = jax.jit(
                     functools.partial(
                         _enhance_u8_batch,
                         cfg=self.config,
-                        plan=plan,
-                        use_pallas=self._use_pallas,
-                        pallas_interpret=self._pallas_interpret,
+                        use_kernel=self._use_kernel,
+                        interpret=self._interpret,
                         planar_io=planar_io,
                     )
                 )
@@ -331,7 +296,7 @@ class EnhancePipeline:
         if self.config.spatial_shards > 1:
             return self._sharded(b, h, w)(imgs_u8)
         if self.config.data_shards > 1:
-            n = min(self.config.data_shards, len(jax.devices()))
+            n = self.config.data_shards
             if b % n:
                 raise ValueError(
                     f"batch {b} not divisible by data_shards={n}; "
@@ -343,13 +308,10 @@ class EnhancePipeline:
     def enhance_batch_device_planar(self, imgs_pu8) -> jnp.ndarray:
         """(B, 3, H, W) PLANAR u8 -> enhanced planar u8, left on device.
 
-        The layout-persistent entry point (VERDICT r4 item 2): no
-        HWC<->planar transpose runs on device — the largest single stage of
-        the default program (docs/PERFORMANCE.md per-stage table). Use when
-        frames stay on device between steps (video/serving round-trips) or
-        when the host stages planar in the prefetch workers
-        (``io.prefetch.to_planar``); the HWC boundary belongs to
-        decode/encode only."""
+        The layout-persistent entry point: no HWC<->planar transpose runs
+        on device. Use when frames stay on device between steps or when the
+        host stages planar in the prefetch workers
+        (``io.prefetch.to_planar``)."""
         b, c, h, w = imgs_pu8.shape
         if c != 3:
             raise ValueError(
@@ -363,7 +325,7 @@ class EnhancePipeline:
                 "parallel.enhance_spatial_sharded directly"
             )
         if self.config.data_shards > 1:
-            n = min(self.config.data_shards, len(jax.devices()))
+            n = self.config.data_shards
             if b % n:
                 raise ValueError(
                     f"batch {b} not divisible by data_shards={n}")
@@ -374,7 +336,7 @@ class EnhancePipeline:
     def _data_sharding(self, n: int):
         """NamedSharding splitting the batch dim over an n-device 'data'
         mesh. The batch-sharded program is collective-free (structurally
-        asserted in tests/parallel/test_dp_scaling.py), so n chips run the
+        asserted in tests/parallel/test_dp_scaling.py), so n devices run the
         identical per-device program concurrently — DP serving is input
         placement, not a new graph."""
         key = ("data_sharding", n)
@@ -395,8 +357,7 @@ class EnhancePipeline:
 
     def _sharded(self, b: int, h: int, w: int):
         """Spatially-sharded execution (config 5): rows split over a
-        'spatial' mesh axis with halo exchange; u8 end-to-end on the fused
-        kernel when Pallas is active."""
+        'spatial' mesh axis with halo exchange, u8 in and out."""
         key = ("sharded", b, h, w)
         fn = self._cache.get(key)
         if fn is not None:
@@ -410,30 +371,18 @@ class EnhancePipeline:
                 make_mesh,
             )
 
-            n_sp = min(self.config.spatial_shards, len(jax.devices()))
-            mesh = make_mesh(n_data=1, n_spatial=n_sp)
+            mesh = make_mesh(n_data=1, n_spatial=self.config.spatial_shards)
             cfg = self.config
-            use_pallas = self._use_pallas
-            interp = self._pallas_interpret
+            use_kernel = self._use_kernel
+            interp = self._interpret
             params = self.model_params
 
             def run(imgs_u8):
                 x = jnp.transpose(imgs_u8, (0, 3, 1, 2))
-                if cfg.method == "retinex" and not use_pallas:
-                    # f32 retinex canvas path: convert at this boundary (the
-                    # u8 fast path and the learned block path convert
-                    # internally).
-                    y = quantize_u8(
-                        enhance_spatial_sharded(
-                            normalize_u8(x), cfg, mesh,
-                            use_pallas=use_pallas, interpret=interp,
-                        )
-                    )
-                else:
-                    y = enhance_spatial_sharded(
-                        x, cfg, mesh, model_params=params,
-                        use_pallas=use_pallas, interpret=interp,
-                    )
+                y = enhance_spatial_sharded(
+                    x, cfg, mesh, model_params=params,
+                    use_kernel=use_kernel, interpret=interp,
+                )
                 return jnp.transpose(y, (0, 2, 3, 1))
 
             fn = jax.jit(run)
@@ -445,7 +394,6 @@ class EnhancePipeline:
         imgs_u8 = np.asarray(imgs_u8)
         n = self.config.data_shards
         if n > 1:
-            n = min(n, len(jax.devices()))
             b = imgs_u8.shape[0]
             if b % n:
                 pad = n - b % n  # replicate the last image up to a multiple
@@ -477,100 +425,6 @@ class EnhancePipeline:
 
     __call__ = enhance
 
-    # ------------------------------------------------------------------ #
-    # Canvas I/O: the layout-persistent device fast path (VERDICT r4 item 2)
-    # ------------------------------------------------------------------ #
-
-    def canvas_plan(self, h: int, w: int) -> StripePlan:
-        """The stripe plan whose padded canvas is the device I/O contract
-        for :meth:`enhance_batch_device_canvas` at image size (h, w)."""
-        from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-            retinex_plan_bytes_per_px,
-        )
-
-        return plan_stripes(
-            h, w, canvas_margin(self.config), self.config.stripe_rows,
-            bytes_per_px=retinex_plan_bytes_per_px(self.config),
-        )
-
-    def stage_canvas(self, imgs_u8, plan: Optional[StripePlan] = None):
-        """Host-side staging for the canvas fast path: (B, H, W, 3) or
-        (H, W, 3) u8 HWC -> (B, 3, Hp, Wp) planar edge-padded canvas
-        (margin rows/cols before the image origin, stripe-aligned). Run in
-        a prefetch worker so it overlaps device compute."""
-        imgs_u8 = np.asarray(imgs_u8)
-        single = imgs_u8.ndim == 3
-        if single:
-            imgs_u8 = imgs_u8[None]
-        _, h, w, _ = imgs_u8.shape
-        if plan is None:
-            plan = self.canvas_plan(h, w)
-        m = plan.margin
-        x = np.moveaxis(imgs_u8, -1, 1)
-        return np.pad(
-            x,
-            ((0, 0), (0, 0), (m, plan.padded_h - h - m),
-             (m, plan.padded_w - w - m)),
-            mode="edge",
-        )
-
-    def crop_canvas(self, canvas_out, h: int, w: int,
-                    plan: Optional[StripePlan] = None) -> np.ndarray:
-        """Host-side inverse of :meth:`stage_canvas` for the kernel's output
-        canvas: (B, 3, S*TH, Wp) -> (B, H, W, 3) u8 (row 0 of the kernel
-        output is image row 0; columns keep the margin offset)."""
-        if plan is None:
-            plan = self.canvas_plan(h, w)
-        m = plan.margin
-        out = np.asarray(canvas_out)[..., :h, m : m + w]
-        return np.moveaxis(out, -3, -1)
-
-    def enhance_batch_device_canvas(self, canvas_u8, h: int,
-                                    w: int) -> jnp.ndarray:
-        """Canvas-in/canvas-out device step: (B, 3, Hp, Wp) u8 staged canvas
-        (``stage_canvas``) -> (B, 3, S*TH, Wp) u8 enhanced canvas
-        (``crop_canvas`` recovers HWC); (h, w) are the real image extents.
-        The device program is the fused kernel ALONE — no transpose, pad,
-        or crop pass runs on device (measured 1.37x the default HWC program
-        at 600x400; the boundary work moves to prefetch-worker host
-        threads, which scale and overlap — docs/PERFORMANCE.md
-        layout-persistence section). Retinex-method fast path; other
-        methods keep their block geometry."""
-        if self.config.method != "retinex" or not self._use_pallas:
-            raise NotImplementedError(
-                "canvas I/O is the fused retinex fast path (method="
-                f"{self.config.method!r}, pallas={self._use_pallas}); use "
-                "enhance_batch_device for the general path"
-            )
-        b, c, hp, wp = canvas_u8.shape
-        if c != 3 or canvas_u8.dtype != jnp.uint8:
-            raise ValueError(
-                f"expected (B, 3, Hp, Wp) u8 canvas, got {canvas_u8.shape} "
-                f"{canvas_u8.dtype}"
-            )
-        key = ("canvas", b, h, w)
-        fn = self._cache.get(key)
-        if fn is None:
-            with self._cache_lock:
-                fn = self._cache.get(key)
-                if fn is None:
-                    cfg = self.config
-                    interp = self._pallas_interpret
-                    plan = self.canvas_plan(h, w)
-                    fn = jax.jit(functools.partial(
-                        fused_retinex, cfg=cfg, plan=plan, interpret=interp,
-                    ))
-                    self._cache[key] = fn
-                    self._cache[("canvas_plan", h, w)] = plan
-        plan = self._cache.get(("canvas_plan", h, w)) or self.canvas_plan(h, w)
-        if (hp, wp) != (plan.padded_h, plan.padded_w):
-            raise ValueError(
-                f"canvas {hp}x{wp} does not match the stripe plan for "
-                f"({h}, {w}) ({plan.padded_h}x{plan.padded_w}); stage with "
-                "stage_canvas/canvas_plan"
-            )
-        return fn(canvas_u8)
-
     def enhance_stream(self, frames, depth: int = 2, staging: str = "hwc",
                        workers: int = 1):
         """Streaming enhancement (BASELINE.json config 4): iterate u8 HWC
@@ -578,23 +432,18 @@ class EnhancePipeline:
         copy run double-buffered ahead of device compute via PrefetchQueue.
         Yields enhanced frames/batches as numpy, in order.
 
-        ``staging`` moves device boundary work onto prefetch-worker host
-        threads (VERDICT r4 item 2 — the HWC boundary is only obligatory at
-        decode/encode):
+        ``staging`` says where the layout work runs:
 
         * ``"hwc"`` — frames go to the device as-is; the device program
-          runs its own transpose/pad/crop passes (the default contract).
+          runs its own transposes (the default contract).
         * ``"planar"`` — the worker converts frames to planar u8 on the
           host; the device runs the transpose-free planar program.
-        * ``"canvas"`` — the worker stages the full edge-padded stripe
-          canvas; the device program is the fused kernel ALONE (retinex
-          only; measured 1.37x the hwc device rate at 600x400). The
-          consumer thread crops results back to HWC while later frames
-          compute. Output is bit-identical in every mode; only where the
-          layout work runs changes. ``workers`` sizes the staging pool.
+
+        Output is bit-identical in both modes. ``workers`` sizes the
+        staging pool.
         """
-        if staging not in ("hwc", "planar", "canvas"):
-            raise ValueError(f"staging must be hwc|planar|canvas: {staging!r}")
+        if staging not in ("hwc", "planar"):
+            raise ValueError(f"staging must be hwc|planar: {staging!r}")
         import collections
 
         from low_light_image_enhancement_tpu.io.prefetch import (
@@ -603,7 +452,6 @@ class EnhancePipeline:
             to_planar,
         )
 
-        plans: Dict[Tuple[int, int], StripePlan] = {}
         # (h, w, was_single) per staged item, filled by the source wrapper
         # in iteration order (the prefetch coordinator pulls the source
         # sequentially, so order matches even with a worker pool)
@@ -619,23 +467,12 @@ class EnhancePipeline:
                 yield a
 
         def stage(a):
-            if staging == "planar":
-                return to_planar(a)
-            if staging == "canvas":
-                shp = (a.shape[1], a.shape[2])
-                plan = plans.get(shp)
-                if plan is None:
-                    plan = plans[shp] = self.canvas_plan(*shp)
-                return self.stage_canvas(a, plan)
-            return a
+            return to_planar(a) if staging == "planar" else a
 
         def finish(done, h, w, single):
-            if staging == "canvas":
-                res = self.crop_canvas(np.asarray(done), h, w)
-            else:
-                res = np.asarray(done)
-                if staging == "planar":
-                    res = from_planar(res)
+            res = np.asarray(done)
+            if staging == "planar":
+                res = from_planar(res)
             return res[0] if single else res
 
         pending = []
@@ -645,9 +482,7 @@ class EnhancePipeline:
                            device_put=True, workers=workers) as q:
             for item in q:
                 h, w, single = metas.popleft()
-                if staging == "canvas":
-                    out = self.enhance_batch_device_canvas(item, h, w)
-                elif staging == "planar":
+                if staging == "planar":
                     out = self.enhance_batch_device_planar(item)
                 else:
                     out = self.enhance_batch_device(item)
@@ -683,25 +518,15 @@ class EnhancePipeline:
         key = ("raw", b, h, w, wb_gains, ccm, raw_gamma, bucketed)
         fn = self._cache.get(key)
         if fn is None:
-            from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-                retinex_plan_bytes_per_px,
-            )
-
             with self._cache_lock:
                 fn = self._cache.get(key)
                 if fn is not None:
                     return fn
-                plan = plan_stripes(
-                    h, w, canvas_margin(self.config),
-                    self.config.stripe_rows,
-                    bytes_per_px=retinex_plan_bytes_per_px(self.config),
-                )
                 enhance_body = functools.partial(
                     _enhance_u8_batch,
                     cfg=self.config,
-                    plan=plan,
-                    use_pallas=self._use_pallas,
-                    pallas_interpret=self._pallas_interpret,
+                    use_kernel=self._use_kernel,
+                    interpret=self._interpret,
                 )
 
                 if bucketed:

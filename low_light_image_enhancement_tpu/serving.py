@@ -72,17 +72,11 @@ class EnhanceServer:
         # geometric batch buckets bound compiles to O(log max_batch) programs
         # per shape while wasting <4x padding compute in the worst case.
         # Under DP serving (config.data_shards > 1) every dispatched batch
-        # must divide over the data mesh, so buckets start at data_shards —
-        # clamped to the device count exactly like
-        # EnhancePipeline.enhance_batch_device clamps its divisibility
-        # check (data_shards=4 on a 3-device host shards over 3).
+        # must divide over the data mesh, so buckets start at data_shards
+        # (the pipeline has already refused a host with fewer devices).
         dshards = getattr(
             getattr(self._pipe, "config", None), "data_shards", 1
         )
-        if dshards > 1:
-            import jax
-
-            dshards = min(dshards, len(jax.devices()))
         top = -(-max_batch // dshards) * dshards  # round up to a multiple
         self._batch_buckets = []
         b = max(1, dshards)

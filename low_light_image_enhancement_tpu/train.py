@@ -1,5 +1,5 @@
 """Zero-reference training for the curve-estimation CNN (BASELINE.json
-config 3: 512x512 batch-64 on a v5e chip).
+config 3: 512x512 batch-64 on one device).
 
 Zero-DCE-family losses — no paired ground truth needed:
   * exposure control: local mean luminance pulled toward a target level
@@ -8,7 +8,7 @@ Zero-DCE-family losses — no paired ground truth needed:
   * illumination smoothness: TV penalty on the curve parameter maps
 
 Data parallelism is sharding-first: params live replicated, the batch is
-sharded over the mesh, and XLA inserts the gradient all-reduce over ICI
+sharded over the mesh, and XLA inserts the gradient all-reduce
 (SURVEY.md §3.3) — no explicit pmap/psum plumbing.
 """
 
@@ -98,7 +98,7 @@ class TrainConfig:
     # classical retinex 10.6 / 0.505; the round-2 optimum was level 0.25
     # before the full-strength denoise tail shifted it brighter, and the
     # textbook Zero-DCE magnitudes exposure_level 0.6 / w_smooth 200
-    # measure far below both — docs/PERFORMANCE.md zero-reference section.
+    # measure far below both — docs/PERFORMANCE.md @84fe805 zero-reference section.
     # Eval SSIM degrades monotonically PAST ~600 steps on this objective
     # (600: 0.519, 2000: 0.513, 6000: 0.503) — the shipped weights stop
     # at 600).
@@ -112,23 +112,20 @@ class TrainConfig:
     exposure_level: float = 0.32
     log_every: int = 50
     checkpoint_every: int = 500
-    # bf16 conv compute with f32 accumulation: the round-5 config-3 A/B
-    # measured 97.4 vs 68.7 img/s (+42%) at loss identical to 4 decimals
-    # (209.4733 vs 209.4801 — scripts/bench_configs.py --configs 3 emits
-    # both arms). The f32 MXU path multi-passes the bf16-native systolic
-    # array AND doubles activation HBM; nothing in these losses needs f32
-    # activations. Recipes of record before round 5 trained f32 — set
-    # compute_dtype="float32" to reproduce them bit-for-bit.
+    # bf16 conv compute: loss identical to 4 decimals against f32 compute
+    # (scripts/bench_configs.py --configs 3 emits both arms), at half the
+    # activation bytes; nothing in these losses needs f32 activations.
+    # Recipes of record before that change trained f32 — set
+    # compute_dtype="float32" to reproduce them.
     compute_dtype: str = "bfloat16"
     # Rematerialize the CNN forward in the backward pass (jax.checkpoint):
     # at the spec'd config-3 size (512x512 batch 64) stored conv activations
-    # alone are ~13 GB — past a v5e's 16 GB HBM without remat.
+    # alone are ~13 GB.
     remat: bool = True
     # Gradient accumulation: split each batch into `microbatch`-sized chunks
     # scanned sequentially, summing grads before one optimizer update —
-    # numerically the full-batch step at a fraction of peak activation HBM.
-    # None = no accumulation. (512x512 b64 on v5e needs microbatch <= 8:
-    # 32-channel NHWC activations pad 4x on TPU lanes.)
+    # numerically the full-batch step at a fraction of peak activation
+    # memory. None = no accumulation.
     microbatch: Optional[int] = None
     # Exponential moving average of the weights (decay per step; 0.999 is
     # the usual scale). When set, the training loop tracks EMA params on
@@ -247,14 +244,14 @@ def _make_step(
     """Generic jitted ``step(params, opt_state, *batch_args)`` for any
     ``loss_fn(params, *batch_args, tcfg) -> (loss, metrics)``. With a mesh,
     batch args are sharded over all mesh axes and params replicated; XLA
-    all-reduces gradients over ICI.
+    all-reduces gradients.
 
     ``spatial_batch=True`` shards the crop ROWS over the mesh's "spatial"
     axis instead of folding that axis into the batch dimension: the batch
     (B, 3, H, W) gets spec ("data", None, "spatial", None), and GSPMD
     inserts the conv halo exchanges and partial-reduction collectives for
     the pooled losses — true spatially-parallel training, for crops too
-    large to fit one chip's HBM. Crop rows must divide by the spatial axis
+    large to fit one device's memory. Crop rows must divide by the spatial axis
     size."""
     optimizer = make_optimizer(tcfg)
 
@@ -525,7 +522,7 @@ def make_synth_eval_fn(
     curves, and the full-strength denoise tail. Used by
     ``tcfg.eval_every``-based early stopping; the zero-reference objective
     especially needs it (its loss keeps falling while eval SSIM peaks
-    early — the shipped-recipe 600-step stop, docs/PERFORMANCE.md)."""
+    early — the shipped-recipe 600-step stop, docs/PERFORMANCE.md @84fe805)."""
     from low_light_image_enhancement_tpu.core import illumination_boost
     from low_light_image_enhancement_tpu.eval.metrics import ssim
 
@@ -621,7 +618,7 @@ def _denoise_tail(y: jnp.ndarray,
     """Apply the pipeline's SHIPPING denoise tail inside a training loss,
     so the net optimizes the image the user actually receives. Moving the
     tail into the loss flipped the round-3 curve-vs-hybrid ranking (+0.06
-    SSIM on hybrid — docs/PERFORMANCE.md "denoise-in-loss").
+    SSIM on hybrid — docs/PERFORMANCE.md @84fe805 "denoise-in-loss").
 
     ``tcfg.loss_tail_taps`` selects WHICH tail (VERDICT r4 item 3):
     "bilateral" (default PipelineConfig, the shipping throughput tail) or
@@ -690,7 +687,7 @@ def paired_curve_loss(
     truth, plus a weak TV prior on the maps (``w_smooth_paired``). The
     zero-reference recipe remains the config-3 training path; this objective
     exists because paired data (synthetic or LOL) trains far more faithful
-    curves — the shipped weights use it (docs/PERFORMANCE.md quality table).
+    curves — the shipped weights use it (docs/PERFORMANCE.md @84fe805 quality table).
     """
     from low_light_image_enhancement_tpu.eval.metrics import ssim
 

@@ -1,5 +1,5 @@
 """Observability and persistence utilities: JSONL metrics, profiling hooks,
-orbax checkpointing."""
+npz checkpointing, the persistent compile cache."""
 
 from low_light_image_enhancement_tpu.utils.logging import JSONLLogger, get_logger
 from low_light_image_enhancement_tpu.utils.profiling import profile_trace, stage

@@ -1,39 +1,19 @@
-"""Analytic roofline model: FLOPs/image, HBM bytes/image, and achieved
-utilization vs TPU v5e peaks (VERDICT r3 item 5 — the bench must say not
-just how fast each method runs but how close to the hardware ceiling, and
-which ceiling).
+"""Analytic per-image cost: FLOPs and memory bytes of one enhancement or
+one training step, and the rates a measured throughput implies.
 
 Conventions (stated once, used everywhere):
 
-* one FMA = 2 FLOPs; one transcendental (exp/log/sigmoid) = 8 FLOPs (the
-  VPU evaluates them as short polynomial chains — 8 is the order-of-
-  magnitude convention, not a measured microarchitectural count);
+* one FMA = 2 FLOPs; one transcendental (exp/log/sigmoid) = 8 FLOPs (an
+  order-of-magnitude convention, not a measured instruction count);
 * FLOP counts are the *algorithmic* work of the math of record, split into
-  MXU FLOPs (conv contractions — the only ops XLA tiles onto the systolic
-  array here) and VPU FLOPs (everything per-pixel);
-* HBM bytes are the *algorithmic minimum* traffic: kernel/graph inputs +
-  outputs + unavoidable inter-stage seams (the CNN's activations between
-  XLA conv layers, the curve-map seam into the fused tail). Real traffic is
-  >= this (stripe halo re-reads, spills), so the utilization fractions are
-  optimistic for HBM and exact-by-convention for FLOPs — good enough to
-  place each method on the roofline (which ceiling binds) and to track
-  headroom round over round.
+  conv FLOPs (the convolution contractions) and pixel FLOPs (everything
+  per-pixel);
+* bytes are the *algorithmic minimum* device-memory traffic: graph inputs
+  + outputs + unavoidable inter-stage seams (the CNN's activations between
+  conv layers, the curve maps). Real traffic is >= this.
 
-Peaks (TPU v5e, public figures): 197 bf16 TFLOP/s (MXU), 819 GB/s HBM.
-The VPU peak is not published. Round 4 carried a back-of-envelope
-lanes x sublanes x ALUs x FMA x clock = 128 * 8 * 4 * 2 * 1.67e9
-~= 13.7 TFLOP/s estimate; round 5 MEASURED it
-(``scripts/probe_vpu_peak.py``: 8 independent register-resident FMA
-chains over an (8, 256) f32 block — the swept optimum; larger blocks or
-more chains spill accumulators to VMEM and decay the probe into a
-bandwidth measurement): **3.5 TF/s f32 FMA** on this chip, consistent
-with one (8, 128)-lane FMA issue per ~1.7 GHz cycle
-(8*128*2*1.72e9 = 3.52 TF/s) — the extra ALUs of the 13.7 guess do not
-co-issue FMAs. The same probe puts exp at ~640 G/s (~2.7 issue slots
-each, so the 8-FLOPs-per-transcendental convention slightly OVERcounts,
-keeping utilization fractions conservative). bf16 FMA measures SLOWER
-(1.34 TF/s — conversion-bound), so f32 is the right VPU peak for the
-per-pixel math.
+No device peak is assumed here: a share of a peak needs the peak table of
+the benchmark, keyed by ``device_kind``.
 """
 
 from __future__ import annotations
@@ -42,12 +22,6 @@ import dataclasses
 
 from low_light_image_enhancement_tpu.config import PipelineConfig
 
-V5E_MXU_BF16_TFLOPS = 197.0
-V5E_HBM_GBPS = 819.0
-# Measured on-chip (scripts/probe_vpu_peak.py, round 5) — see module
-# docstring. The pre-r5 13.7 TF/s estimate understated VPU utilization 3.9x.
-V5E_VPU_TFLOPS_MEAS = 3.5
-
 _TRANSCENDENTAL = 8  # FLOPs per exp/log/sigmoid, by convention
 
 
@@ -55,9 +29,9 @@ _TRANSCENDENTAL = 8  # FLOPs per exp/log/sigmoid, by convention
 class Cost:
     """Per-image algorithmic cost of one enhancement at (h, w)."""
 
-    mxu_flops: float   # conv contraction FLOPs (2 * kh*kw*cin*cout / out px)
-    vpu_flops: float   # per-pixel math FLOPs
-    hbm_bytes: float   # algorithmic-minimum HBM traffic
+    conv_flops: float  # conv contraction FLOPs (2 * kh*kw*cin*cout / out px)
+    pixel_flops: float  # per-pixel math FLOPs
+    mem_bytes: float   # algorithmic-minimum device-memory traffic
 
 
 def _conv_flops(h: int, w: int, sizes, k: int = 3) -> float:
@@ -65,7 +39,7 @@ def _conv_flops(h: int, w: int, sizes, k: int = 3) -> float:
     return float(sum(2 * k * k * cin * cout * h * w for cin, cout in sizes))
 
 
-def _denoise_vpu_flops_per_px(cfg: PipelineConfig) -> float:
+def _denoise_flops_per_px(cfg: PipelineConfig) -> float:
     """Bilateral tail: per tap — guide diff + square (2), range weight
     (transcendental for 'exp', 2 for 'epan'), weight/value accumulate
     (2 FMAs = 4). Luma guide shares the weight plane across channels
@@ -84,7 +58,7 @@ def _denoise_vpu_flops_per_px(cfg: PipelineConfig) -> float:
     return float(per_px)
 
 
-def _illum_vpu_flops_per_px(cfg: PipelineConfig) -> float:
+def _illum_flops_per_px(cfg: PipelineConfig) -> float:
     """max-RGB (2) + separable blur (2 passes x (2r+1) FMAs) + clip (2) +
     gain exp/log chain (log + mul + exp ~= 2*T + 1) + 3-channel apply
     (mul + clip = 3 * 3)."""
@@ -94,16 +68,16 @@ def _illum_vpu_flops_per_px(cfg: PipelineConfig) -> float:
 
 def pipeline_cost(cfg: PipelineConfig, h: int, w: int) -> Cost:
     """Algorithmic per-image cost of ``EnhancePipeline`` at (h, w) for
-    ``cfg.method``, following the math of record (core.py / blocks.py /
-    the fused kernels). u8 io: 3 bytes/px in + 3 out."""
+    ``cfg.method``, following the math of record (core.py / blocks.py).
+    u8 io: 3 bytes/px in + 3 out."""
     px = float(h * w)
     io_bytes = 6.0 * px
     norm_quant = 1 + 3  # u8->f32 mul; round+clip+cast per channel ~ 1 each
     act = 2 if cfg.compute_dtype == "bfloat16" else 4  # activation bytes
 
     if cfg.method == "retinex":
-        vpu = _illum_vpu_flops_per_px(cfg) + _denoise_vpu_flops_per_px(cfg)
-        return Cost(0.0, (vpu + norm_quant) * px, io_bytes)
+        pix = _illum_flops_per_px(cfg) + _denoise_flops_per_px(cfg)
+        return Cost(0.0, (pix + norm_quant) * px, io_bytes)
 
     ds = cfg.curve_downsample
     f, n = cfg.curve_features, cfg.curve_iters
@@ -113,47 +87,45 @@ def pipeline_cost(cfg: PipelineConfig, h: int, w: int) -> Cost:
     curve_tail = n * 3 * 4
 
     if cfg.method in ("curve", "hybrid"):
-        mxu = _conv_flops(h // ds, w // ds, curve_sizes)
-        # CNN activations between XLA conv layers round-trip HBM (write +
-        # read) at the compute dtype; the curve maps cross the XLA->Pallas
-        # seam in f32 (write + read)
+        conv = _conv_flops(h // ds, w // ds, curve_sizes)
+        # CNN activations between conv layers round-trip device memory
+        # (write + read) at the compute dtype; so do the f32 curve maps
         inter = [f, f, f, f, f, f]  # outputs of c1..c6 (c7 = the maps)
         act_bytes = sum(2 * c * act for c in inter) * px / (ds * ds)
         maps_bytes = 2 * n * 3 * 4 * px / (ds * ds)
         relu = (6 * f + 3 * n) * 2 / (ds * ds)  # relu/tanh-ish per layer px
-        vpu = norm_quant + curve_tail + relu + _denoise_vpu_flops_per_px(cfg)
+        pix = norm_quant + curve_tail + relu + _denoise_flops_per_px(cfg)
         if ds > 1:
-            vpu += n * 3 * 8  # 2-D map upsample: 2 lerps x ~4 per iter/ch
+            pix += n * 3 * 8  # 2-D map upsample: 2 lerps x ~4 per iter/ch
         if cfg.method == "hybrid":
-            vpu += _illum_vpu_flops_per_px(cfg)
-        return Cost(mxu, vpu * px, io_bytes + act_bytes + maps_bytes)
+            pix += _illum_flops_per_px(cfg)
+        return Cost(conv, pix * px, io_bytes + act_bytes + maps_bytes)
 
     if cfg.method == "fcn":
         depth, feat = 7, 24
         sizes = [(3, feat)] + [(feat, feat)] * (depth - 1)
-        mxu = _conv_flops(h, w, sizes) + 2 * feat * 3 * px  # + 1x1 head
+        conv = _conv_flops(h, w, sizes) + 2 * feat * 3 * px  # + 1x1 head
         act_bytes = depth * 2 * feat * act * px
-        vpu = (norm_quant + depth * feat * 2  # leaky_relu per layer px
+        pix = (norm_quant + depth * feat * 2  # leaky_relu per layer px
                + _TRANSCENDENTAL * 3) * px    # sigmoid head per channel
-        return Cost(mxu, vpu, io_bytes + act_bytes)
+        return Cost(conv, pix, io_bytes + act_bytes)
 
     if cfg.method == "decom":
         feat = 32
         sizes = [(4, feat), (feat, feat), (feat, feat), (feat, feat),
                  (feat, 4)]
-        mxu = _conv_flops(h, w, sizes)
+        conv = _conv_flops(h, w, sizes)
         act_bytes = 4 * 2 * feat * act * px
         # relight: L**decom_gamma (exp+log) + multiply + denoise tail
-        vpu = (norm_quant + 2 * _TRANSCENDENTAL + 3
-               + _denoise_vpu_flops_per_px(cfg)) * px
-        return Cost(mxu, vpu, io_bytes + act_bytes)
+        pix = (norm_quant + 2 * _TRANSCENDENTAL + 3
+               + _denoise_flops_per_px(cfg)) * px
+        return Cost(conv, pix, io_bytes + act_bytes)
 
     raise ValueError(f"no roofline model for method {cfg.method!r}")
 
 
 # ------------------------------------------------------------------ #
-# Training-step roofline (VERDICT r4 item 5: config 3 had a rate but no
-# efficiency statement — FLOPs/bytes/utilization for fwd+bwd+update)
+# Training step (config 3): fwd + bwd + update
 # ------------------------------------------------------------------ #
 
 _CURVE_SIZES = lambda f, n: [(3, f), (f, f), (f, f), (f, f), (2 * f, f),
@@ -171,20 +143,20 @@ def train_step_cost(features: int, n_iter: int, crop: int,
       of the same shape per layer); ``remat`` adds one more forward
       (jax.checkpoint recomputes activations in the bwd pass) -> 4x fwd
       with remat, 3x without;
-    * HBM bytes: batch in (f32 planar) + per-layer activations at the
-      compute dtype crossing HBM twice per materialization (write + read),
+    * bytes: batch in (f32 planar) + per-layer activations at the
+      compute dtype crossing device memory twice per materialization (write + read),
       materialized twice with remat (fwd + recompute) plus gradients once;
       params/optimizer state are O(100 KB) for this net — charged once,
       negligible vs activations at config-3 sizes;
-    * the loss's pooled terms and the curve application are VPU work of
+    * the loss's pooled terms and the curve application are pixel work of
       the same order as inference's per-pixel tail — counted via the
       inference model's curve tail constant.
     """
     px = float(crop * crop)
     sizes = _CURVE_SIZES(features, n_iter)
-    fwd_mxu = _conv_flops(crop, crop, sizes)
+    fwd_conv = _conv_flops(crop, crop, sizes)
     passes = 4.0 if remat else 3.0
-    mxu = passes * fwd_mxu
+    conv = passes * fwd_conv
 
     act = 2 if compute_dtype == "bfloat16" else 4
     inter = [features] * 6  # c1..c6 outputs; c7 emits the maps
@@ -194,68 +166,18 @@ def train_step_cost(features: int, n_iter: int, crop: int,
     maps_bytes = 2 * n_iter * 3 * 4 * px  # curve maps (f32) fwd + bwd
     io_bytes = 2 * 3 * 4 * px  # f32 planar batch in, read fwd + recompute
     # per-pixel loss work: curves fwd+bwd (~3x fwd), pools, TV
-    vpu = (n_iter * 3 * 4 * 3 + 40) * px
-    return Cost(mxu, vpu, io_bytes + act_bytes + grad_bytes + maps_bytes)
+    pix = (n_iter * 3 * 4 * 3 + 40) * px
+    return Cost(conv, pix, io_bytes + act_bytes + grad_bytes + maps_bytes)
 
 
-def train_roofline_report(features: int, n_iter: int, crop: int,
-                          images_per_sec: float, remat: bool = True,
-                          compute_dtype: str = "float32") -> dict:
-    """Flat JSON fields for the config-3 training bench: achieved TF/s and
-    GB/s vs v5e peaks and which ceiling binds. The MXU fraction is
-    reported against the bf16 peak; f32 contractions lower through the
-    bf16 MXU via multi-pass (so their achievable ceiling is a small
-    integer fraction of it — the ``mxu_util_pct`` field states the
-    compute dtype to keep that readable)."""
-    c = train_step_cost(features, n_iter, crop, remat, compute_dtype)
-    mxu_tf = c.mxu_flops * images_per_sec / 1e12
-    vpu_tf = c.vpu_flops * images_per_sec / 1e12
-    gbps = c.hbm_bytes * images_per_sec / 1e9
-    fracs = {
-        "MXU": mxu_tf / V5E_MXU_BF16_TFLOPS,
-        "VPU": vpu_tf / V5E_VPU_TFLOPS_MEAS,
-        "HBM": gbps / V5E_HBM_GBPS,
-    }
-    bound = max(fracs, key=fracs.get)
+def achieved(cost: Cost, images_per_sec: float) -> dict:
+    """The operation and byte rates a measured throughput implies, beside
+    the per-image counts. Rates only: no peak, no utilization."""
     return {
-        "train_flops_per_img_mxu": round(c.mxu_flops),
-        "train_hbm_bytes_per_img": round(c.hbm_bytes),
-        "train_achieved_mxu_tflops": round(mxu_tf, 2),
-        "train_achieved_hbm_gbps": round(gbps, 2),
-        "train_mxu_util_pct_of_bf16_peak": round(100 * fracs["MXU"], 2),
-        "train_hbm_util_pct": round(100 * fracs["HBM"], 2),
-        "train_compute_dtype": compute_dtype,
-        "train_roofline_bound": bound,
-    }
-
-
-def roofline_report(cfg: PipelineConfig, h: int, w: int,
-                    images_per_sec: float) -> dict:
-    """Achieved rates vs v5e peaks + the binding ceiling, as flat
-    driver-scrapable JSON fields."""
-    c = pipeline_cost(cfg, h, w)
-    mxu_tf = c.mxu_flops * images_per_sec / 1e12
-    vpu_tf = c.vpu_flops * images_per_sec / 1e12
-    gbps = c.hbm_bytes * images_per_sec / 1e9
-    fracs = {
-        "MXU": mxu_tf / V5E_MXU_BF16_TFLOPS,
-        "VPU": vpu_tf / V5E_VPU_TFLOPS_MEAS,
-        "HBM": gbps / V5E_HBM_GBPS,
-    }
-    bound = max(fracs, key=fracs.get)
-    return {
-        "flops_per_img_mxu": round(c.mxu_flops),
-        "flops_per_img_vpu": round(c.vpu_flops),
-        "hbm_bytes_per_img": round(c.hbm_bytes),
-        "achieved_mxu_tflops": round(mxu_tf, 3),
-        "achieved_vpu_tflops_conv": round(vpu_tf, 3),
-        "achieved_hbm_gbps": round(gbps, 2),
-        "mxu_util_pct": round(100 * fracs["MXU"], 2),
-        # key name kept from r4 for driver-JSON continuity; the denominator
-        # is now the MEASURED 3.5 TF/s peak (see vpu_peak_tflops), not the
-        # retired 13.7 estimate
-        "vpu_util_pct_est": round(100 * fracs["VPU"], 2),
-        "vpu_peak_tflops": V5E_VPU_TFLOPS_MEAS,
-        "hbm_util_pct": round(100 * fracs["HBM"], 2),
-        "roofline_bound": bound,
+        "conv_flops_per_img": cost.conv_flops,
+        "pixel_flops_per_img": cost.pixel_flops,
+        "mem_bytes_per_img": cost.mem_bytes,
+        "achieved_conv_tflops": cost.conv_flops * images_per_sec / 1e12,
+        "achieved_pixel_tflops": cost.pixel_flops * images_per_sec / 1e12,
+        "achieved_mem_gbps": cost.mem_bytes * images_per_sec / 1e9,
     }

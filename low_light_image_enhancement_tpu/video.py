@@ -18,17 +18,9 @@ and runs on the same halo'd row block as ``blocks.enhance_learned_block``;
 ``VideoEnhancer`` wraps it with a Python-side state holder and the u8 HWC
 API.
 
-TPU fast path (round 3, VERDICT r2 item 4): the EMA state is the *compact*
-temporal quantity — the illumination plane for retinex/hybrid, the 1/ds
-low-res curve maps for curve (ds^2 x smaller than the round-2 full-res map
-carry: 16x at ds=4) — and the per-pixel tail (normalize -> gain/curves ->
-denoise -> quantize) runs in the fused Pallas kernels via their external-
-gain/low-res-map inputs, u8 end-to-end. For ``method="retinex"`` the WHOLE
-step is one kernel pass (``kernels.fused_retinex_ema``): illumination,
-per-pixel EMA (negative-sentinel initialization), temporally-relit gain,
-denoise, quantize, and the carry update — the carry round-trips HBM once
-per frame and no full-res XLA plane pass remains. The jnp path remains for
-CPU and as the parity reference.
+The EMA state is the *compact* temporal quantity — the illumination plane
+for retinex/hybrid, the 1/ds low-res curve maps for curve (ds^2 x smaller
+than a full-res map carry). The step is plain ``jax.numpy``.
 """
 
 from __future__ import annotations
@@ -40,9 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from low_light_image_enhancement_tpu.blocks import (
-    _curve_maps,
     _curve_maps_lowres,
-    _fused_curve_tail,
     _mask_extent,
     block_geometry,
     enhance_learned_block,
@@ -50,7 +40,6 @@ from low_light_image_enhancement_tpu.blocks import (
     replicate_margin_cols,
 )
 from low_light_image_enhancement_tpu.config import (
-    MARGIN,
     PipelineConfig,
     canvas_margin,
 )
@@ -65,15 +54,6 @@ from low_light_image_enhancement_tpu.ops.filters import roll2d, separable_blur
 State = Tuple[jnp.ndarray, jnp.ndarray]  # (initialized flag, EMA carry)
 
 _VIDEO_METHODS = ("retinex", "hybrid", "curve")
-
-# video_step's ema_in_kernel=None resolves to this default: route the
-# retinex step through the fully-fused EMA kernel. The enhancer classes
-# expose it as a constructor field (``ema_in_kernel=``) — per VERDICT r4
-# item 7 the old module-level mutable flag (read at trace time, a footgun
-# when flipped after the first process() call) is retired; the A/B bench
-# builds one enhancer per setting via the constructor.
-_EMA_IN_KERNEL_DEFAULT = True
-
 
 def _bcast_flag(flag: jnp.ndarray, like: jnp.ndarray) -> jnp.ndarray:
     """Right-pad the initialized flag with singleton axes so it broadcasts
@@ -98,114 +78,6 @@ def _denoise_tail(y: jnp.ndarray, cfg: PipelineConfig) -> jnp.ndarray:
     return jnp.clip(y, 0.0, 1.0)
 
 
-def _fused_ema_tail(
-    xb: jnp.ndarray,
-    carry_eff: jnp.ndarray,
-    cfg: PipelineConfig,
-    halo: int,
-    rows: int,
-    img_w: int,
-    alpha: float,
-    interpret: bool,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Fully-fused retinex video step (kernels.fused_retinex_ema): ONE
-    kernel pass does normalize -> illumination -> per-pixel EMA ->
-    temporally-relit gain -> denoise -> quantize, and emits the new carry.
-    Replaces the ext_gain seam's ~6 full-res XLA plane passes (measured ~2x
-    the stateful 1080p rate — docs/PERFORMANCE.md video section).
-
-    Exactness: the kernel writes l_mix for the block's interior band
-    [halo - MARGIN, halo + rows + MARGIN) — every carry row any consumer
-    (the denoise taps of cropped output rows, this device's or a
-    neighboring shard's own recompute) ever reads, the same consumed-band
-    argument parallel.video_sharded relies on. The outer MARGIN carry rows
-    per side are re-derived by edge replication; they are never read, so
-    single-device and sharded trajectories stay bit-identical to the jnp
-    path on all consumed pixels (up to cross-compiler exp/log ulps, as the
-    stateless kernel). Adversarially pinned by the carry-poison tests in
-    tests/kernels/test_fused_retinex_ema.py.
-
-    ``alpha`` is STATIC on this path (baked into the kernel at trace
-    time); a traced alpha needs ``ema_in_kernel=False``.
-    """
-    if isinstance(alpha, jax.core.Tracer):
-        raise TypeError(
-            "the fused EMA video kernel bakes alpha in at trace time; pass "
-            "a static float alpha, or ema_in_kernel=False to video_step to "
-            "use the jnp/ext_gain path with a traced alpha"
-        )
-    from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-        fused_retinex_ema,
-        retinex_plan_bytes_per_px,
-    )
-    from low_light_image_enhancement_tpu.kernels.striping import plan_stripes
-
-    single = xb.ndim == 3
-    if single:
-        xb, carry_eff = xb[None], carry_eff[None]
-    m = canvas_margin(cfg)
-    wb = xb.shape[-1]
-    band = rows + 2 * (halo - m)  # rows the kernel writes l_mix for
-    plan = plan_stripes(
-        band, wb - 2 * m, m, cfg.stripe_rows,
-        bytes_per_px=retinex_plan_bytes_per_px(cfg) + 16,  # carry+lmix+gain
-    )
-    extra = plan.padded_h - (band + 2 * m)
-    sub, csub = xb, carry_eff
-    if extra:
-        pads = ((0, extra), (0, 0))
-        sub = jnp.pad(sub, ((0, 0),) * (sub.ndim - 2) + pads, mode="edge")
-        csub = jnp.pad(csub, ((0, 0),) * (csub.ndim - 2) + pads, mode="edge")
-    out, lmix = fused_retinex_ema(sub, csub, cfg, plan, alpha, img_w,
-                                  interpret=interpret)
-    off = halo - m
-    out = out[..., off : off + rows, :]
-    lead = ((0, 0),) * (lmix.ndim - 2)
-    new_carry = jnp.pad(lmix[..., :band, :],
-                        lead + ((m, m), (0, 0)), mode="edge")
-    if single:
-        return out[0], new_carry[0]
-    return out, new_carry
-
-
-def _fused_gain_tail(
-    xb: jnp.ndarray,
-    gain: jnp.ndarray,
-    cfg: PipelineConfig,
-    halo: int,
-    rows: int,
-    interpret: bool,
-) -> jnp.ndarray:
-    """Retinex-video tail through the fused kernel: u8 normalize ->
-    ``y = x * gain`` (the EMA'd boost plane) -> bilateral denoise -> u8
-    quantize, all VMEM-resident (fused_enhance ext_gain seam)."""
-    from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-        fused_retinex,
-        retinex_plan_bytes_per_px,
-    )
-    from low_light_image_enhancement_tpu.kernels.striping import plan_stripes
-
-    single = xb.ndim == 3
-    if single:
-        xb, gain = xb[None], gain[None]
-    m = canvas_margin(cfg)
-    wb = xb.shape[-1]
-    plan = plan_stripes(
-        rows, wb - 2 * m, m, cfg.stripe_rows,
-        bytes_per_px=retinex_plan_bytes_per_px(cfg) + 8,  # + gain plane
-    )
-    sub = xb[..., halo - m : halo + rows + m, :]
-    gsub = gain[..., halo - m : halo + rows + m, :]
-    extra = plan.padded_h - (rows + 2 * m)
-    if extra:
-        pads = ((0, extra), (0, 0))
-        sub = jnp.pad(sub, ((0, 0),) * (sub.ndim - 2) + pads, mode="edge")
-        gsub = jnp.pad(gsub, ((0, 0),) * (gsub.ndim - 2) + pads, mode="edge")
-    out = fused_retinex(sub, cfg, plan, interpret=interpret,
-                        gain=gsub)[..., :rows, :]
-    return out[0] if single else out
-
-
 def video_step(
     state: State,
     xb: jnp.ndarray,
@@ -214,36 +86,26 @@ def video_step(
     model_params: Optional[Dict[str, Any]] = None,
     h: Optional[int] = None,
     w: Optional[int] = None,
-    use_pallas: bool = False,
-    interpret: bool = False,
     row0=None,
-    ema_in_kernel: Optional[bool] = None,
 ) -> Tuple[State, jnp.ndarray]:
     """One frame on a halo'd block (3, HB, WB) — or one frame PER STREAM on
     a batched block (S, 3, HB, WB) with a per-stream flag of shape (S,) and
-    a carry with leading stream axis — f32 in [0, 1], or uint8 (the TPU
-    fast path: the per-pixel tail runs in the fused Pallas kernels when
-    ``use_pallas``; output dtype matches the input).
+    a carry with leading stream axis — f32 in [0, 1], or uint8 (output
+    dtype matches the input).
 
     ``alpha`` is the new-frame weight of the EMA (1.0 = no smoothing = the
-    stateless pipeline). On the default fused retinex TPU path
-    (``ema_in_kernel``) alpha is STATIC — baked into the kernel at trace
-    time; jitting over a traced alpha raises a TypeError naming
-    ``ema_in_kernel=False`` as the escape hatch (the jnp/ext_gain paths
-    accept a traced alpha). The carry is the compact temporal quantity: the
-    (HB, WB) illumination plane for retinex/hybrid, the (n_iter, 3, HB/ds,
-    WB/ds) LOW-RES curve maps for curve — EMA-then-upsample equals
-    upsample-then-EMA (both linear), so downsampled smoothing loses nothing
-    while cutting the carry (and its HBM traffic) by ds^2 (VERDICT r2
-    item 4: the round-2 full-res carry was ~0.8 GB/stream at 4K).
+    stateless pipeline); it may be traced. The carry is the compact
+    temporal quantity: the (HB, WB) illumination plane for retinex/hybrid,
+    the (n_iter, 3, HB/ds, WB/ds) LOW-RES curve maps for curve —
+    EMA-then-upsample equals upsample-then-EMA (both linear), so
+    downsampled smoothing loses nothing while cutting the carry by ds^2.
     Returns (new_state, enhanced interior rows (3, HB - 2*halo, WB));
     columns are cropped by the caller.
     """
     initialized, carry = state
     from low_light_image_enhancement_tpu.blocks import resolve_conv_impl
 
-    cfg = resolve_conv_impl(cfg, use_pallas=use_pallas, interpret=interpret,
-                            batch=xb.shape[0] if xb.ndim == 4 else 1)
+    cfg = resolve_conv_impl(cfg)
     halo = learned_halo(cfg)
     rows = xb.shape[-2] - 2 * halo
     if h is None:
@@ -262,19 +124,7 @@ def video_step(
         y = y[..., halo : halo + rows, :]
         return quantize_u8(y) if u8_io else y
 
-    if ema_in_kernel is None:
-        ema_in_kernel = _EMA_IN_KERNEL_DEFAULT
     if cfg.method in ("retinex", "hybrid"):
-        if cfg.method == "retinex" and use_pallas and ema_in_kernel:
-            # Fully-fused step: illumination, EMA, gain, denoise and the
-            # carry update all happen inside one kernel pass; the flag
-            # becomes a per-pixel negative sentinel so first frames and
-            # per-stream resets need no in-kernel scalar.
-            carry_eff = jnp.where(_bcast_flag(initialized, carry),
-                                  carry, -1.0)
-            out, new_carry = _fused_ema_tail(xb, carry_eff, cfg, halo,
-                                             rows, w, alpha, interpret)
-            return (jnp.ones_like(initialized), new_carry), out
         l_now = _illum(xf, cfg)
         l_mix = jnp.where(_bcast_flag(initialized, l_now),
                           alpha * l_now + (1.0 - alpha) * carry, l_now)
@@ -292,26 +142,11 @@ def video_step(
 
         if cfg.method == "hybrid":
             boosted = jnp.clip(xf * gain[..., None, :, :], 0.0, 1.0)
-            if use_pallas:
-                ds = cfg.curve_downsample
-                cnn_in = _mask_extent(boosted, row0, h, w,
-                                      canvas_margin(cfg))
-                if ds in (2, 4):
-                    maps = _curve_maps_lowres(cnn_in, cfg, model_params)
-                else:
-                    maps, ds = _curve_maps(cnn_in, cfg, model_params), 1
-                return new_state, _fused_curve_tail(
-                    xb, maps, cfg, halo, rows, interpret, ds=ds, gain=gain
-                )
             out = enhance_learned_block(
                 xb, cfg, model_params, row0=row0, h=h, w=w,
                 pre_boosted=boosted,
             )
             return new_state, out
-        if use_pallas:
-            return new_state, _fused_gain_tail(
-                xb, gain, cfg, halo, rows, interpret
-            )
         y = _denoise_tail(jnp.clip(xf * gain[..., None, :, :], 0.0, 1.0), cfg)
         return new_state, _finish(y)
 
@@ -322,11 +157,7 @@ def video_step(
         maps = jnp.where(_bcast_flag(initialized, maps_now),
                          alpha * maps_now + (1.0 - alpha) * carry, maps_now)
         new_state = (jnp.ones_like(initialized), maps)
-        if use_pallas and ds in (1, 2, 4):
-            return new_state, _fused_curve_tail(
-                xb, maps, cfg, halo, rows, interpret, ds=ds, img_w=w,
-            )
-        if ds > 1:  # ds=8: XLA upsample, then the ds=1 tail/jnp path
+        if ds > 1:
             from low_light_image_enhancement_tpu.ops.filters import (
                 shift2d,
                 upsample_int,
@@ -336,10 +167,6 @@ def video_step(
             maps_full = upsample_int(maps_full, ds, axis=-2, shift_fn=shift2d)
         else:
             maps_full = maps
-        if use_pallas:
-            return new_state, _fused_curve_tail(
-                xb, maps_full, cfg, halo, rows, interpret, ds=1, img_w=w,
-            )
         y = _denoise_tail(jnp.clip(apply_curves(xf, maps_full), 0.0, 1.0),
                           cfg)
         return new_state, _finish(y)
@@ -350,9 +177,7 @@ def video_step(
     )
 
 
-def _make_step(cfg: PipelineConfig, alpha: float, params, use_pallas: bool,
-               interp: bool, h: int, w: int,
-               ema_in_kernel: Optional[bool] = None):
+def _make_step(cfg: PipelineConfig, alpha: float, params, h: int, w: int):
     """Build the rank-agnostic jittable frame step and the per-stream carry
     shape for an (h, w) frame size: the same function serves a single
     (H, W, 3) frame and an (S, H, W, 3) multi-stream batch (channel axis is
@@ -368,11 +193,8 @@ def _make_step(cfg: PipelineConfig, alpha: float, params, use_pallas: bool,
             x, lead + ((halo, halo + h_core - h), (m, wp - w - m)),
             mode="edge",
         )
-        if not use_pallas:
-            xb = normalize_u8(xb)
-        state, yb = video_step(state, xb, cfg, alpha, params, h, w,
-                               use_pallas=use_pallas, interpret=interp,
-                               ema_in_kernel=ema_in_kernel)
+        state, yb = video_step(state, normalize_u8(xb), cfg, alpha, params,
+                               h, w)
         out = yb[..., :h, m : m + w]
         if out.dtype != jnp.uint8:
             out = quantize_u8(out)
@@ -389,13 +211,11 @@ def _make_step(cfg: PipelineConfig, alpha: float, params, use_pallas: bool,
 
 class _VideoBase:
     """Shared state/compile plumbing for the single- and multi-stream
-    enhancers: method validation, default-weight loading, the Pallas gate,
-    and the compile-on-first-frame step builder."""
+    enhancers: method validation, default-weight loading, and the
+    compile-on-first-frame step builder."""
 
     def _init_common(self, config: PipelineConfig, alpha: float,
-                     model_params: Optional[Dict[str, Any]],
-                     force_jnp: bool, pallas_interpret: bool,
-                     ema_in_kernel: Optional[bool] = None) -> None:
+                     model_params: Optional[Dict[str, Any]]) -> None:
         if config.method not in _VIDEO_METHODS:
             raise ValueError(
                 f"video path supports methods {_VIDEO_METHODS}, got "
@@ -411,43 +231,18 @@ class _VideoBase:
 
             model_params = EnhancePipeline._default_params(config, 0)
         self.model_params = model_params
-        backend = jax.default_backend()
-        self._use_pallas = config.use_pallas and not force_jnp and (
-            backend == "tpu" or pallas_interpret
-        )
-        self._pallas_interpret = pallas_interpret and backend != "tpu"
-        # Constructor-owned trace-time flag (VERDICT r4 item 7: was a
-        # module-level mutable global): True routes the retinex step through
-        # the fully-fused EMA kernel, False through the ext_gain seam
-        # (needed for a traced alpha); None = the module default.
-        self.ema_in_kernel = (
-            _EMA_IN_KERNEL_DEFAULT if ema_in_kernel is None
-            else bool(ema_in_kernel)
-        )
         self._state: Optional[State] = None
         self._step = None
         self._shape: Optional[Tuple[int, int]] = None
 
     def _build(self, h: int, w: int) -> None:
-        """Build + jit the frame step for an (h, w) frame size. conv_impl
-        'auto' is resolved at batch=1 here — NOT at the device-step batch —
-        so a stream's pixels never depend on how many streams share the
-        batched step (resolving at batch=S would flip the conv impl past
-        the AUTO_CONV_BANDS edge and break per-stream parity with a lone
-        VideoEnhancer by ~1 u8 step on ~20% of pixels at the bf16
-        default)."""
+        """Build + jit the frame step for an (h, w) frame size."""
         from low_light_image_enhancement_tpu.blocks import resolve_conv_impl
 
         self._shape = (h, w)
-        self._resolved_cfg = resolve_conv_impl(
-            self.config, use_pallas=self._use_pallas,
-            interpret=self._pallas_interpret, batch=1,
-        )
+        self._resolved_cfg = resolve_conv_impl(self.config)
         step, self._carry_shape = _make_step(
-            self._resolved_cfg, self.alpha, self.model_params,
-            self._use_pallas, self._pallas_interpret, h, w,
-            ema_in_kernel=self.ema_in_kernel,
-        )
+            self._resolved_cfg, self.alpha, self.model_params, h, w)
         self._step = jax.jit(step)
 
     def reset(self) -> None:
@@ -475,12 +270,8 @@ class VideoEnhancer(_VideoBase):
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  alpha: float = 0.3,
-                 model_params: Optional[Dict[str, Any]] = None,
-                 force_jnp: bool = False,
-                 pallas_interpret: bool = False,
-                 ema_in_kernel: Optional[bool] = None):
-        self._init_common(config, alpha, model_params, force_jnp,
-                          pallas_interpret, ema_in_kernel=ema_in_kernel)
+                 model_params: Optional[Dict[str, Any]] = None):
+        self._init_common(config, alpha, model_params)
 
     def process(self, frame_u8: np.ndarray) -> np.ndarray:
         frame_u8 = np.asarray(frame_u8)
@@ -505,16 +296,11 @@ class VideoEnhancer(_VideoBase):
 class MultiStreamVideoEnhancer(_VideoBase):
     """S independent video streams enhanced in ONE batched device step.
 
-    Measured motivation (docs/PERFORMANCE.md video table): the stateful
-    curve/hybrid video step runs the CNN at batch 1 per frame, where the
-    MXU sits mostly idle (1080p curve ds=4: 137 fps single-stream while the
-    stateless batched pipeline does thousands of img/s). Batching one frame
-    from each of S streams recovers the batched pipeline's utilization while
-    the EMA carry stays strictly per-stream — stream i's output is
-    bit-identical to running it alone through :class:`VideoEnhancer` with
-    the same jnp/fused path (``tests/integration/test_video.py``; conv_impl
-    'auto' is resolved at batch=1 regardless of S — see ``_VideoBase._build``
-    — so the parity holds at every stream count).
+    The stateful curve/hybrid video step runs the CNN at batch 1 per frame;
+    batching one frame from each of S streams gives the device a batched
+    step while the EMA carry stays strictly per-stream — stream i's output
+    matches running it alone through :class:`VideoEnhancer`
+    (``tests/integration/test_video.py``).
 
     ::
 
@@ -527,15 +313,11 @@ class MultiStreamVideoEnhancer(_VideoBase):
     def __init__(self, n_streams: int,
                  config: PipelineConfig = PipelineConfig(),
                  alpha: float = 0.3,
-                 model_params: Optional[Dict[str, Any]] = None,
-                 force_jnp: bool = False,
-                 pallas_interpret: bool = False,
-                 ema_in_kernel: Optional[bool] = None):
+                 model_params: Optional[Dict[str, Any]] = None):
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         self.n_streams = int(n_streams)
-        self._init_common(config, alpha, model_params, force_jnp,
-                          pallas_interpret, ema_in_kernel=ema_in_kernel)
+        self._init_common(config, alpha, model_params)
 
     def reset(self, stream: Optional[int] = None) -> None:
         """Re-seed the EMA — all streams, or just ``stream`` (scene cut in

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Data-parallel scaling measurement on a virtual CPU mesh (VERDICT r1 #7).
 
-This host has ONE physical core, so a wall-clock 1->8-device speedup curve is
-physically meaningless here (all 8 virtual devices time-share the core). What
-IS measurable and transfers to a real v5e slice:
+On a CPU host the 8 virtual devices time-share the cores, so a wall-clock
+1->8-device speedup curve means nothing here. What IS measurable and
+transfers to a multi-device host:
 
   * weak-scaling overhead — hold per-device batch constant, grow the device
     count; on one core the ideal time is n * t1 (pure serialization), so
@@ -11,11 +11,11 @@ IS measurable and transfers to a real v5e slice:
     program ADDS over the single-device program (resharding, dispatch,
     runtime). ~1.0 means the per-device program is unchanged — and since the
     structural tests (tests/parallel/test_dp_scaling.py) prove the step
-    contains no cross-device collectives, n such programs on n real chips
+    contains no cross-device collectives, n such programs on n real devices
     run concurrently at efficiency ~= 1 / overhead_factor.
 
-Prints one JSON line with t1, the overhead curve, and the implied multi-chip
-efficiency.
+Prints one JSON line with t1, the overhead curve, and the implied
+multi-device efficiency.
 """
 
 from __future__ import annotations
@@ -38,9 +38,8 @@ import numpy as np
 
 
 def measure(per_dev_batch: int, h: int, w: int, repeats: int) -> dict:
-    from low_light_image_enhancement_tpu.config import MARGIN, PipelineConfig
+    from low_light_image_enhancement_tpu.config import PipelineConfig
     from low_light_image_enhancement_tpu.data.synth import synth_batch
-    from low_light_image_enhancement_tpu.kernels.striping import plan_stripes
     from low_light_image_enhancement_tpu.parallel import (
         make_mesh,
         shard_batch_fn,
@@ -48,10 +47,8 @@ def measure(per_dev_batch: int, h: int, w: int, repeats: int) -> dict:
     from low_light_image_enhancement_tpu.pipeline import _enhance_u8_batch
 
     cfg = PipelineConfig()
-    plan = plan_stripes(h, w, MARGIN, cfg.stripe_rows)
     fn = functools.partial(
-        _enhance_u8_batch, cfg=cfg, plan=plan,
-        use_pallas=False, pallas_interpret=False,
+        _enhance_u8_batch, cfg=cfg, use_kernel=False, interpret=False,
     )
     base, _ = synth_batch(per_dev_batch, h, w)
 

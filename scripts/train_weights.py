@@ -42,7 +42,7 @@ def train_curve(steps: int, batch: int, crop: int,
     ``--models hybrid --steps 10000 --batch 16 --crop 256
     --denoise-in-loss`` — comparing AFTER the pipeline's denoise tail lets
     the CNN sharpen through the blur the tail will apply (19.27 dB / 0.728
-    SSIM vs 18.89 / 0.665 without; docs/PERFORMANCE.md)."""
+    SSIM vs 18.89 / 0.665 without; docs/PERFORMANCE.md @84fe805)."""
     import jax as _jax
 
     from low_light_image_enhancement_tpu.config import PipelineConfig
@@ -92,10 +92,9 @@ def train_fcn_weights(steps: int, batch: int, crop: int,
                       loss_tail: str = "bilateral",
                       out_name: str = None) -> dict:
     """Measured width sweep (600x400 bf16, img/s): 8->1633, 16->883,
-    24->597, 32->410, 64->446, 128->358 — sub-128 channel counts
-    underutilize the MXU, so 64 costs barely more than 32. A trained
-    64-wide net scored 18.29 dB / 0.895 SSIM vs 24-wide's 18.78 / 0.888 at
-    72% of the throughput: not worth shipping, 24 stays the default."""
+    24->597, 32->410, 64->446, 128->358 on the original accelerator. A
+    trained 64-wide net scored 18.29 dB / 0.895 SSIM vs 24-wide's
+    18.78 / 0.888: not worth shipping, 24 stays the default."""
     from low_light_image_enhancement_tpu.data.synth_device import synth_batch_iter
     from low_light_image_enhancement_tpu.models.fcn import init_fcn
     from low_light_image_enhancement_tpu.models.weights import save_params

@@ -22,6 +22,14 @@ def test_config_smoke(cfg_id):
 def test_headline_bench_smoke():
     import bench
 
-    res = bench.bench_throughput(batch=2, h=32, w=48, repeats=1,
-                                 n_short=1, n_long=3)
+    res = bench.bench_throughput(batch=2, h=32, w=48, repeats=1, iters=2)
     assert res["images_per_sec"] > 0
+    # every result names the device it ran on
+    assert res["device"]["platform"] == "cpu" and res["device"]["count"] >= 1
+
+
+def test_headline_bench_needs_a_gpu(capsys):
+    import bench
+
+    assert bench.main([]) != 0
+    assert "needs a GPU" in capsys.readouterr().err

@@ -1,10 +1,6 @@
-"""Layout persistence (VERDICT r4 item 2): the planar and canvas I/O fast
-paths must be bit-identical to the default HWC contract — only WHERE the
-layout conversion runs (device vs prefetch-worker host threads) changes.
-
-Spec: BASELINE.json:2 (images/sec/chip is the metric; the HWC<->planar
-transpose passes were the largest single device cost of the default
-600x400 program — docs/PERFORMANCE.md per-stage table).
+"""Layout persistence: the planar I/O path must be bit-identical to the
+default HWC contract — only WHERE the layout conversion runs (device vs
+prefetch-worker host threads) changes.
 """
 
 import numpy as np
@@ -53,34 +49,24 @@ def test_planar_program_matches_hwc_pallas_interpret():
     np.testing.assert_array_equal(from_planar(pl), hwc)
 
 
-def test_canvas_path_matches_standard(interpret_on_cpu=True):
-    """stage_canvas -> kernel-only device program -> crop_canvas must equal
-    enhance_batch exactly (the canvas is exactly the padding the standard
-    program builds on device)."""
-    cfg = PipelineConfig()
-    pipe = EnhancePipeline(cfg, pallas_interpret=True)
+def test_kernel_path_matches_plain_path():
+    """The fused kernel (interpreter) and the plain graph through the same
+    pipeline entry: equal up to isolated u8 rounding ties."""
     x = _batch()
-    ref = pipe.enhance_batch(x)
-    canvas = pipe.stage_canvas(x)
-    out_canvas = pipe.enhance_batch_device_canvas(jnp.asarray(canvas), 48, 64)
-    got = pipe.crop_canvas(out_canvas, 48, 64)
-    np.testing.assert_array_equal(got, ref)
+    got = EnhancePipeline(PipelineConfig(), pallas_interpret=True
+                          ).enhance_batch(x)
+    want = EnhancePipeline(PipelineConfig(), force_jnp=True).enhance_batch(x)
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3
 
 
-def test_canvas_path_rejects_wrong_geometry_and_methods():
-    pipe = EnhancePipeline(PipelineConfig(), pallas_interpret=True)
-    with pytest.raises(ValueError, match="stripe plan"):
-        pipe.enhance_batch_device_canvas(
-            jnp.zeros((1, 3, 50, 64), jnp.uint8), 48, 64
-        )
-    pipe_jnp = EnhancePipeline(PipelineConfig(), force_jnp=True)
-    with pytest.raises(NotImplementedError, match="canvas"):
-        pipe_jnp.enhance_batch_device_canvas(
-            jnp.zeros((1, 3, 56, 72), jnp.uint8), 48, 64
-        )
+def test_enhance_stream_rejects_unknown_staging():
+    pipe = EnhancePipeline(PipelineConfig(), force_jnp=True)
+    with pytest.raises(ValueError, match="staging"):
+        next(pipe.enhance_stream(iter(_batch(1)), staging="canvas"))
 
 
-@pytest.mark.parametrize("staging", ["hwc", "planar", "canvas"])
+@pytest.mark.parametrize("staging", ["hwc", "planar"])
 def test_enhance_stream_staging_modes_identical(staging):
     cfg = PipelineConfig()
     pipe = EnhancePipeline(cfg, pallas_interpret=True)
@@ -92,7 +78,8 @@ def test_enhance_stream_staging_modes_identical(staging):
         np.testing.assert_array_equal(got, want)
 
 
-def test_enhance_stream_staging_batches(staging="canvas"):
+@pytest.mark.parametrize("staging", ["hwc", "planar"])
+def test_enhance_stream_staging_batches(staging):
     cfg = PipelineConfig()
     pipe = EnhancePipeline(cfg, pallas_interpret=True)
     batches = [_batch(2), _batch(2)]
@@ -106,10 +93,6 @@ def test_enhance_stream_staging_batches(staging="canvas"):
 def test_planar_path_with_data_shards():
     """planar I/O composes with DP batch sharding (data_shards > 1): the
     batch-sharded planar program matches the unsharded planar program."""
-    import jax
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs >= 2 devices")
     cfg = PipelineConfig(data_shards=2)
     pipe = EnhancePipeline(cfg, force_jnp=True)
     x = to_planar(_batch(4))

@@ -5,7 +5,6 @@ import low_light_image_enhancement_tpu as llie
 from low_light_image_enhancement_tpu.config import PipelineConfig
 from low_light_image_enhancement_tpu.core import MARGIN, enhance_core_padded
 from low_light_image_enhancement_tpu.data.synth import synth_batch, synth_pair
-from low_light_image_enhancement_tpu.kernels.striping import plan_stripes
 from low_light_image_enhancement_tpu.ops.denoise import bilateral_denoise
 from low_light_image_enhancement_tpu.ops.retinex import retinex_enhance
 from low_light_image_enhancement_tpu.pipeline import EnhancePipeline, pad_planar
@@ -38,8 +37,7 @@ def test_core_padded_equals_public_ops_interior():
     rng = np.random.default_rng(0)
     h, w = 40, 72
     x = jnp.asarray(rng.random((3, h, w), dtype=np.float32))
-    plan = plan_stripes(h, w, MARGIN, cfg.stripe_rows)
-    xp = pad_planar(x, plan, h, w)
+    xp = pad_planar(x, MARGIN)
     got = np.asarray(
         enhance_core_padded(xp, cfg)[..., MARGIN : MARGIN + h, MARGIN : MARGIN + w]
     )

@@ -267,12 +267,6 @@ def test_server_dp_sharded_pipeline():
     """DP serving: a data_shards pipeline behind the dispatcher produces
     the same bytes as the unsharded server, and every dispatched batch
     bucket divides over the data mesh (buckets start at data_shards)."""
-    import jax
-
-    if len(jax.devices()) < 4:
-        import pytest
-
-        pytest.skip("needs >= 4 devices (conftest provides 8 fake CPUs)")
     from low_light_image_enhancement_tpu.config import PipelineConfig
 
     cfg = PipelineConfig(data_shards=4)
@@ -286,17 +280,15 @@ def test_server_dp_sharded_pipeline():
         np.testing.assert_array_equal(out, ref.enhance(im))
 
 
-def test_server_dp_buckets_clamped_to_device_count():
-    """data_shards beyond the device count clamps like the pipeline's
-    divisibility check does — buckets are multiples of the CLAMPED n."""
+def test_server_dp_refuses_more_shards_than_devices():
+    """data_shards beyond the device count is refused when the server is
+    built: a DP setting never shrinks to the devices at hand."""
     import jax
+    import pytest
 
     from low_light_image_enhancement_tpu.config import PipelineConfig
 
     n_dev = len(jax.devices())
     cfg = PipelineConfig(data_shards=2 * n_dev)
-    with EnhanceServer(cfg, max_delay_ms=5.0, max_batch=2 * n_dev) as srv:
-        assert all(b % n_dev == 0 for b in srv._batch_buckets), \
-            srv._batch_buckets
-        out = srv.enhance(synth_pair(0, 32, 48)[0])
-        assert out.dtype == np.uint8
+    with pytest.raises(ValueError, match="needs"):
+        EnhanceServer(cfg, max_delay_ms=5.0, max_batch=2 * n_dev)

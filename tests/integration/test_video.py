@@ -113,24 +113,25 @@ def test_curve_video_carry_is_lowres():
 @pytest.mark.parametrize("method,ds", [("retinex", 1), ("hybrid", 1),
                                        ("curve", 1), ("curve", 2),
                                        ("curve", 8)])
-def test_video_pallas_matches_jnp(method, ds):
-    """The fused-kernel video tail (interpret mode on CPU) must reproduce
-    the jnp video path on u8 outputs up to isolated rounding ties.
+def test_video_alpha_one_matches_stateless_pipeline(method, ds):
+    """At alpha=1 the EMA keeps nothing, so every frame must come out as
+    the stateless pipeline makes it — an independent route (single-block
+    canvas, pipeline boost form) to the same pixels. Up to isolated u8
+    rounding ties (the relit gain exp(g*log L - log L) vs exp((g-1)*log L));
+    the outer denoise-radius columns are left out, where the video step
+    replicates the gain's margin columns and the pipeline blurs across
+    them."""
+    from low_light_image_enhancement_tpu.config import denoise_radius
 
-    ds=8 pins the off-fused-path branch (video.video_step: the in-kernel
-    2-D map upsample covers ds in {1, 2, 4}; ds=8 upsamples the EMA'd maps
-    in XLA and runs the ds=1 fused tail — a documented perf cliff, see
-    docs/PERFORMANCE.md video section)."""
     frames = _flickering_video(3, h=64, w=64)
     cfg = PipelineConfig(method=method, curve_downsample=ds,
                          compute_dtype="float32")
-    ve_k = VideoEnhancer(cfg, alpha=0.3, pallas_interpret=True)
-    ve_j = VideoEnhancer(cfg, alpha=0.3, force_jnp=True,
-                         model_params=ve_k.model_params)
+    ve = VideoEnhancer(cfg, alpha=1.0)
+    pipe = EnhancePipeline(cfg, model_params=ve.model_params)
+    r = denoise_radius(cfg)
     for f in frames:
-        a = ve_k.process(f).astype(int)
-        b = ve_j.process(f).astype(int)
-        d = np.abs(a - b)
+        d = np.abs(ve.process(f).astype(int) - pipe.enhance(f).astype(int))
+        d = d[:, r:-r]
         assert d.max() <= 1 and (d > 0).mean() < 1e-3
 
 
@@ -181,8 +182,8 @@ def test_multistream_matches_independent_streams(method):
     s, n = 3, 4
     kw = {"curve_downsample": 2} if method in ("curve", "hybrid") else {}
     cfg = PipelineConfig(method=method, **kw)
-    mv = MultiStreamVideoEnhancer(s, cfg, alpha=0.3, force_jnp=True)
-    singles = [VideoEnhancer(cfg, alpha=0.3, force_jnp=True,
+    mv = MultiStreamVideoEnhancer(s, cfg, alpha=0.3)
+    singles = [VideoEnhancer(cfg, alpha=0.3,
                              model_params=mv.model_params)
                for _ in range(s)]
     for frames in _stream_videos(s, n):
@@ -199,8 +200,8 @@ def test_multistream_per_stream_reset():
     continuously-run reference."""
     s = 2
     cfg = PipelineConfig()
-    mv = MultiStreamVideoEnhancer(s, cfg, alpha=0.2, force_jnp=True)
-    cont = VideoEnhancer(cfg, alpha=0.2, force_jnp=True)   # mirrors stream 0
+    mv = MultiStreamVideoEnhancer(s, cfg, alpha=0.2)
+    cont = VideoEnhancer(cfg, alpha=0.2)   # mirrors stream 0
     batches = _stream_videos(s, n=5)
     for frames in batches[:3]:
         outs = mv.process(frames)
@@ -208,7 +209,7 @@ def test_multistream_per_stream_reset():
         assert np.abs(outs[0].astype(int) - ref0.astype(int)).max() <= 1
 
     mv.reset(1)
-    fresh = VideoEnhancer(cfg, alpha=0.2, force_jnp=True)  # stream 1 post-cut
+    fresh = VideoEnhancer(cfg, alpha=0.2)  # stream 1 post-cut
     for frames in batches[3:]:
         outs = mv.process(frames)
         ref0 = cont.process(frames[0])
@@ -218,36 +219,36 @@ def test_multistream_per_stream_reset():
 
 
 @pytest.mark.parametrize("method", ["curve", "retinex"])
-def test_multistream_pallas_matches_jnp(method):
-    """Fused-kernel batched video tail (interpret mode) vs the batched jnp
-    path, per stream — including a mid-sequence per-stream reset, so the
-    fused retinex path's negative-sentinel carry (one stream of the batch
-    re-seeding while the other keeps its EMA) is exercised in-kernel
-    (ADVICE r3)."""
+def test_multistream_matches_single_streams_with_reset(method):
+    """The batched video step vs one VideoEnhancer per stream, per stream —
+    including a mid-sequence reset of stream 1 only (a fresh enhancer
+    stands in for it), so one stream of the batch re-seeds while the
+    other keeps its EMA."""
     s = 2
     kw = {"curve_downsample": 2} if method == "curve" else {}
     cfg = PipelineConfig(method=method, compute_dtype="float32", **kw)
-    mk = MultiStreamVideoEnhancer(s, cfg, alpha=0.3, pallas_interpret=True)
-    mj = MultiStreamVideoEnhancer(s, cfg, alpha=0.3, force_jnp=True,
-                                  model_params=mk.model_params)
-    assert mk._use_pallas
+    mv = MultiStreamVideoEnhancer(s, cfg, alpha=0.3)
+    singles = [VideoEnhancer(cfg, alpha=0.3, model_params=mv.model_params)
+               for _ in range(s)]
     for t, frames in enumerate(_stream_videos(s, n=4, h=48, w=64)):
-        if t == 2:  # scene cut in stream 1 only, both arms
-            mk.reset(1)
-            mj.reset(1)
-        d = np.abs(mk.process(frames).astype(int)
-                   - mj.process(frames).astype(int))
-        assert d.max() <= 1 and (d > 0).mean() < 1e-3
+        if t == 2:  # scene cut in stream 1 only
+            mv.reset(1)
+            singles[1].reset()
+        got = mv.process(frames)
+        for i in range(s):
+            d = np.abs(got[i].astype(int)
+                       - singles[i].process(frames[i]).astype(int))
+            assert d.max() <= 1 and (d > 0).mean() < 1e-3
 
 
 def test_multistream_validation_and_carry():
     cfg = PipelineConfig(method="curve", curve_downsample=2)
-    mv = MultiStreamVideoEnhancer(4, cfg, force_jnp=True)
+    mv = MultiStreamVideoEnhancer(4, cfg)
     with pytest.raises(ValueError, match="n_streams"):
         mv.process(np.zeros((3, 40, 64, 3), np.uint8))
     frames = _stream_videos(4, n=1)[0]
     mv.process(frames)
-    single = VideoEnhancer(cfg, force_jnp=True,
+    single = VideoEnhancer(cfg,
                            model_params=mv.model_params)
     single.process(frames[0])
     assert mv.carry_bytes == 4 * single.carry_bytes
@@ -260,19 +261,15 @@ def test_multistream_validation_and_carry():
 
 
 def test_multistream_conv_impl_is_stream_count_independent(monkeypatch):
-    """conv_impl='auto' must resolve at batch=1 regardless of n_streams —
-    resolving at batch=S would flip the impl past the AUTO_CONV_BANDS edge
-    and make a stream's pixels depend on how many streams share the device
-    step (breaking per-stream parity with a lone VideoEnhancer)."""
-    from low_light_image_enhancement_tpu import blocks
-
-    monkeypatch.setattr(blocks.jax, "default_backend", lambda: "tpu")
+    """conv_impl='auto' must resolve the same for any n_streams, so a
+    stream's pixels never depend on how many streams share the device step
+    (per-stream parity with a lone VideoEnhancer)."""
     cfg = PipelineConfig(method="curve", curve_downsample=2)
-    single = VideoEnhancer(cfg, force_jnp=True)
+    single = VideoEnhancer(cfg)
     # far past curve's packed band (40): batch-S resolution would pick xla
-    many = MultiStreamVideoEnhancer(64, cfg, force_jnp=True,
+    many = MultiStreamVideoEnhancer(64, cfg,
                                     model_params=single.model_params)
     single._build(40, 64)
     many._build(40, 64)
-    assert single._resolved_cfg.conv_impl == "packed"
+    assert single._resolved_cfg.conv_impl == "xla"
     assert many._resolved_cfg.conv_impl == single._resolved_cfg.conv_impl

@@ -56,12 +56,13 @@ def test_workers_validation():
                     reason="decode scaling needs >= 4 CPUs")
 def test_decode_throughput_scales(tmp_path):
     """Throughput with 4 workers should beat 1 worker on a GIL-releasing
-    decode workload (PNG via PIL)."""
-    import numpy as np
-
+    decode workload (PNG: zlib's inflate releases the GIL). The image is a
+    compressible 800x1200 frame: a small or incompressible one decodes
+    faster than the pool hands out work, and would time the pool."""
+    from low_light_image_enhancement_tpu.data.synth import synth_pair
     from low_light_image_enhancement_tpu.io.codec import decode_image, encode_image
 
-    img = np.random.default_rng(0).integers(0, 255, (200, 300, 3), dtype="uint8")
+    _, img = synth_pair(0, 800, 1200)
     blob = encode_image(img, format="PNG")
     blobs = [blob] * 40
 

@@ -1,49 +1,42 @@
-"""Kernel-vs-jnp parity (SURVEY.md §4): the Pallas kernels in interpreter mode
-must reproduce the pure-jnp core to float32 rounding."""
+"""Fused retinex kernel (Pallas, Triton route) vs the plain jnp graph.
+
+The kernel runs under the Pallas interpreter here. It evaluates the same
+f32 ops in the same order as the plain path, so on the CPU the two agree
+exactly up to u8 rounding ties: the bound is one u8 step, with at most a
+few pixels at it. On the GPU the kernel's exp/log differ from XLA's in the
+last ulps; chip_smoke.py checks that bound there.
+"""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 from low_light_image_enhancement_tpu.config import PipelineConfig
-from low_light_image_enhancement_tpu.core import MARGIN, enhance_core_padded
-from low_light_image_enhancement_tpu.kernels.fused_enhance import fused_retinex
-from low_light_image_enhancement_tpu.kernels.striping import (
-    extract_stripes,
-    merge_stripes,
-    plan_stripes,
-)
-from low_light_image_enhancement_tpu.kernels.tiled_denoise import tiled_denoise
-from low_light_image_enhancement_tpu.pipeline import EnhancePipeline, pad_planar
 from low_light_image_enhancement_tpu.data.synth import synth_batch
+from low_light_image_enhancement_tpu.kernels.fused_enhance import (
+    fused_retinex,
+    kernel_covers,
+)
+from low_light_image_enhancement_tpu.pipeline import EnhancePipeline
+
+TIE_FRACTION = 1e-3  # u8 rounding ties: at most this share of pixels
 
 
-def _padded_input(b, h, w, cfg, seed=0):
+def _low(b, h, w, seed=0):
     rng = np.random.default_rng(seed)
-    x = jnp.asarray(rng.random((b, 3, h, w), dtype=np.float32))
-    plan = plan_stripes(h, w, MARGIN, cfg.stripe_rows)
-    return pad_planar(x, plan, h, w), plan
+    return rng.integers(0, 120, (b, h, w, 3), dtype=np.uint8)
 
 
-def test_stripe_plan_alignment():
-    for h, w in [(400, 600), (64, 64), (1080, 1920), (3, 5)]:
-        p = plan_stripes(h, w, MARGIN)
-        assert p.padded_w % 128 == 0
-        assert p.stripe_rows % 8 == 0
-        assert p.padded_h == p.n_stripes * p.stripe_rows + 2 * MARGIN
-        assert p.n_stripes * p.stripe_rows >= h
-        assert p.padded_w >= w + 2 * MARGIN
+def _kernel(imgs, cfg, tile=(8, 32, 4)):
+    planar = jnp.asarray(np.moveaxis(imgs, -1, 1))
+    out = fused_retinex(planar, cfg, interpret=True, tile=tile)
+    return np.moveaxis(np.asarray(out), 1, -1)
 
 
-def test_extract_merge_roundtrip():
-    cfg = PipelineConfig()
-    xp, plan = _padded_input(2, 40, 72, cfg)
-    stripes = extract_stripes(xp, plan)  # (B, 3, S, THh, Wp)
-    m = plan.margin
-    central = stripes[..., m : m + plan.stripe_rows, :]
-    merged = merge_stripes(jnp.moveaxis(central, -3, -4), plan)
-    want = xp[..., m : m + plan.n_stripes * plan.stripe_rows, :]
-    np.testing.assert_array_equal(np.asarray(merged), np.asarray(want))
+def _assert_close(got, want):
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert d.max() <= 1, d.max()
+    assert (d > 0).mean() <= TIE_FRACTION, (d > 0).mean()
 
 
 @pytest.mark.parametrize("h,w", [(40, 72), (104, 200), (33, 47)])
@@ -53,91 +46,63 @@ def test_extract_merge_roundtrip():
 ])
 def test_fused_retinex_parity_interpret(h, w, guide, taps):
     cfg = PipelineConfig(denoise_guide=guide, denoise_taps=taps)
-    xp, plan = _padded_input(2, h, w, cfg, seed=1)
-    got = np.asarray(fused_retinex(xp, cfg, plan, interpret=True))
-    want_full = np.asarray(enhance_core_padded(xp, cfg))
-    m = plan.margin
-    want = want_full[..., m : m + plan.n_stripes * plan.stripe_rows, :]
-    # compare only the valid image region (padding columns may differ at the
-    # wrap-corrupted outer ring)
-    np.testing.assert_allclose(
-        got[..., :h, m : m + w], want[..., :h, m : m + w], atol=1e-6
-    )
+    imgs = _low(2, h, w, seed=1)
+    want = EnhancePipeline(cfg, force_jnp=True).enhance_batch(imgs)
+    _assert_close(_kernel(imgs, cfg), want)
 
 
-@pytest.mark.parametrize("guide,taps", [
-    ("perchannel", "full"), ("luma", "sep"),
+@pytest.mark.parametrize("tile", [(8, 16, 4), (16, 64, 4), (4, 128, 2)])
+def test_tile_shape_does_not_change_output(tile):
+    """Tiles that do not divide the image: masked stores and clamped loads
+    at every tile edge."""
+    cfg = PipelineConfig()
+    imgs = _low(1, 37, 53, seed=3)
+    want = EnhancePipeline(cfg, force_jnp=True).enhance_batch(imgs)
+    _assert_close(_kernel(imgs, cfg, tile=tile), want)
+
+
+@pytest.mark.parametrize("over", [
+    {"denoise_kernel": "epan"},
+    {"denoise_strength": 0.0},
+    {"blur_radius": 3, "blur_sigma": 1.5},
+    {"gamma": 0.6, "denoise_strength": 0.5, "denoise_sigma": 0.1},
 ])
-def test_tiled_denoise_parity_interpret(guide, taps):
-    cfg = PipelineConfig(denoise_guide=guide, denoise_taps=taps)
-    xp, plan = _padded_input(1, 48, 80, cfg, seed=2)
-    got = np.asarray(
-        tiled_denoise(xp, cfg.denoise_sigma, cfg.denoise_strength, plan,
-                      interpret=True, kind=cfg.denoise_kernel,
-                      guide=cfg.denoise_guide, taps=cfg.denoise_taps)
-    )
-    want_full = np.asarray(
-        enhance_core_padded(xp, cfg.replace(method="curve", gamma=1.0),
-                            curve_maps=jnp.zeros((1, 1, 3) + xp.shape[-2:]))
-    )
-    m = plan.margin
-    want = want_full[..., m : m + plan.n_stripes * plan.stripe_rows, :]
-    np.testing.assert_allclose(
-        got[..., :48, m : m + 80], want[..., :48, m : m + 80], atol=1e-6
-    )
+def test_covered_variants(over):
+    cfg = PipelineConfig(**over)
+    assert kernel_covers(cfg)
+    imgs = _low(1, 24, 40, seed=4)
+    want = EnhancePipeline(cfg, force_jnp=True).enhance_batch(imgs)
+    _assert_close(_kernel(imgs, cfg), want)
 
 
-def test_pipeline_pallas_interpret_matches_jnp_end_to_end():
+def test_pipeline_interpret_matches_jnp_end_to_end():
     lows, _ = synth_batch(2, 40, 72)
     cfg = PipelineConfig()
     jnp_pipe = EnhancePipeline(cfg, force_jnp=True)
     pal_pipe = EnhancePipeline(cfg, pallas_interpret=True)
-    assert pal_pipe._use_pallas
-    a = jnp_pipe.enhance_batch(lows)
-    b = pal_pipe.enhance_batch(lows)
-    # identical math -> at most a 1-count quantization flip anywhere
-    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+    assert pal_pipe._use_kernel and not jnp_pipe._use_kernel
+    _assert_close(pal_pipe.enhance_batch(lows), jnp_pipe.enhance_batch(lows))
 
 
-def test_plan_stripes_raises_when_no_stripe_fits_vmem():
-    """Very wide frames with heavy kernels must fail with a remedy message
-    at plan time, not as a Mosaic scoped-vmem OOM at compile time (review
-    finding r2: the 8-row floor silently exceeded the 16 MB limit for
-    curve n_iter=8 + luma at 4K width)."""
-    from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-        curve_plan_bytes_per_px,
-    )
-
-    heavy = curve_plan_bytes_per_px(8, 4, "luma")  # 270 B/px
-    with pytest.raises(ValueError, match="no VMEM-fitting stripe"):
-        plan_stripes(2160, 3840, MARGIN, 1024, bytes_per_px=heavy)
-    # the perchannel variant of the same workload still plans
-    ok = plan_stripes(2160, 3840, MARGIN, 1024,
-                      bytes_per_px=curve_plan_bytes_per_px(8, 4,
-                                                           "perchannel"))
-    assert ok.n_stripes >= 1
+def test_rejects_uncovered_config_and_bad_input():
+    with pytest.raises(ValueError, match="does not cover"):
+        fused_retinex(jnp.zeros((1, 3, 8, 8), jnp.uint8),
+                      PipelineConfig(denoise_taps="guided"), interpret=True)
+    with pytest.raises(ValueError, match="uint8"):
+        fused_retinex(jnp.zeros((1, 3, 8, 8), jnp.float32),
+                      PipelineConfig(), interpret=True)
 
 
-def test_guided_bytes_per_px_scales_with_radius():
-    """Regression for the round-4 scoped-vmem OOM: a flat +32 B/px guided
-    term planned 200-row stripes for the decom path at guided_radius=4
-    whose Mosaic scoped peak measured 16.86 MB (127.9 B/px) — past the
-    16 MB hard limit. The guided term must grow with radius, and the
-    planned stripe bytes at the MEASURED r=4 footprint must stay under
-    the limit."""
-    from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-        guided_tail_bytes_per_px,
-    )
-
-    assert guided_tail_bytes_per_px(2) == 32
-    assert guided_tail_bytes_per_px(4) > guided_tail_bytes_per_px(2)
-    # the decom denoise-stage model at r=4 (blocks.py dn_bpp): luma 72 +
-    # radius-dependent guided term must cover the measured 128 B/px
-    dn_bpp_r4 = 72 + guided_tail_bytes_per_px(4)
-    assert dn_bpp_r4 >= 128, dn_bpp_r4
-    # and the plan it produces keeps the MEASURED footprint under 16 MB
-    # (600x400 canvas, margin 8 as in the failing config)
-    plan = plan_stripes(400, 600, 8, 1024, bytes_per_px=dn_bpp_r4)
-    measured_bpp = 128
-    stripe_bytes = measured_bpp * (plan.stripe_rows + 16) * plan.padded_w
-    assert stripe_bytes < 16 * 1024 * 1024, (plan, stripe_bytes)
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(48, 400, 600), (1, 33, 47)])
+def test_compiled_kernel_matches_plain_graph(gpu_device, shape):
+    """The kernel as compiled for the card (no interpreter) against XLA's
+    plain graph: one u8 step at most (exp/log ulps differ between the two
+    compilers), on few pixels."""
+    b, h, w = shape
+    imgs = _low(b, h, w, seed=9)
+    cfg = PipelineConfig()
+    kern = EnhancePipeline(cfg)
+    assert kern._use_kernel
+    _assert_close(kern.enhance_batch(imgs),
+                  EnhancePipeline(cfg, force_jnp=True).enhance_batch(imgs))

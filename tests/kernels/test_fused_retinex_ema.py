@@ -1,20 +1,20 @@
-"""Dedicated parity + adversarial tests for ``kernels.fused_retinex_ema`` —
-the default-on fully-fused retinex video step (VERDICT r3 item 1).
+"""Parity + adversarial tests for the retinex video step
+(``video.video_step``, plain jnp), against an independent in-test oracle.
 
 Two contracts pinned here:
 
-1. **Math parity**: the kernel (interpret mode) reproduces an in-test jnp
-   oracle of the documented EMA algebra — normalize -> max-RGB illumination
-   -> separable blur -> per-pixel EMA with the negative-carry sentinel ->
+1. **Math parity**: the step reproduces an in-test jnp oracle of the
+   documented EMA algebra — normalize -> max-RGB illumination -> separable
+   blur -> per-pixel EMA (negative carry = not yet initialized) ->
    temporally-relit gain ``exp(gamma*log(l_mix) - log(l_now))`` -> margin
    column replication -> denoise -> quantize — on every consumed pixel, for
-   fresh (sentinel), initialized, and per-pixel-mixed carries, u8 and f32 io.
+   fresh, initialized and per-stream-mixed carries, u8 and f32 io.
 
-2. **Consumed-band isolation** (the load-bearing exactness argument of
-   ``video._fused_ema_tail`` and ``parallel.video_sharded``): carry rows
-   OUTSIDE the interior band [halo - MARGIN, halo + rows + MARGIN) are never
-   read — poisoning them (huge values AND the negative sentinel) must not
-   change the output frame or the new carry, single-device and sharded.
+2. **Consumed-band isolation** (the exactness argument of
+   ``parallel.video_sharded``): carry rows OUTSIDE the interior band
+   [halo - MARGIN, halo + rows + MARGIN) never reach an output — poisoning
+   them (huge values AND the negative sentinel) changes neither the output
+   frames nor the carry inside the band, single-device and sharded.
 """
 
 import jax
@@ -23,29 +23,26 @@ import numpy as np
 import pytest
 
 from low_light_image_enhancement_tpu.blocks import (
+    block_geometry,
     learned_halo,
     replicate_margin_cols,
 )
 from low_light_image_enhancement_tpu.config import MARGIN, PipelineConfig
-from low_light_image_enhancement_tpu.core import enhance_core_padded  # noqa: F401 (parity family)
-from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-    fused_retinex_ema,
-    retinex_plan_bytes_per_px,
-)
-from low_light_image_enhancement_tpu.kernels.striping import plan_stripes
 from low_light_image_enhancement_tpu.ops.colorspace import (
     normalize_u8,
     quantize_u8,
 )
 from low_light_image_enhancement_tpu.ops.filters import roll2d, separable_blur
-from low_light_image_enhancement_tpu.pipeline import pad_planar
-from low_light_image_enhancement_tpu.video import VideoEnhancer, _denoise_tail
+from low_light_image_enhancement_tpu.video import (
+    VideoEnhancer,
+    _denoise_tail,
+    video_step,
+)
 
 
 def _oracle_ema(xp, carry, cfg, alpha, img_w):
-    """The documented EMA video algebra on the whole padded canvas (the jnp
-    reference of record for the kernel: video.video_step's non-fused branch
-    restricted to one canvas)."""
+    """The documented EMA video algebra on a whole block, written out
+    independently of video.video_step (negative carry = uninitialized)."""
     u8_io = xp.dtype == jnp.uint8
     xf = normalize_u8(xp) if u8_io else xp
     l_now = separable_blur(jnp.max(xf, axis=-3), cfg.blur_radius,
@@ -59,14 +56,17 @@ def _oracle_ema(xp, carry, cfg, alpha, img_w):
     return (quantize_u8(y) if u8_io else y), l_mix
 
 
-def _canvas(b, h, w, cfg, seed, u8):
+def _block(b, h, w, cfg, seed, u8):
+    """(b, 3, HB, WB) edge-padded block, as video._make_step builds it."""
     rng = np.random.default_rng(seed)
     x = rng.random((b, 3, h, w), dtype=np.float32)
     if u8:
         x = (x * 255).round().astype(np.uint8)
-    plan = plan_stripes(h, w, MARGIN, cfg.stripe_rows,
-                        bytes_per_px=retinex_plan_bytes_per_px(cfg) + 16)
-    return pad_planar(jnp.asarray(x), plan, h, w), plan
+    halo = learned_halo(cfg)
+    h_core, wp = block_geometry(cfg, h, w)
+    xb = np.pad(x, ((0, 0), (0, 0), (halo, halo + h_core - h),
+                    (MARGIN, wp - w - MARGIN)), mode="edge")
+    return jnp.asarray(xb), halo
 
 
 @pytest.mark.parametrize("carry_mode", ["fresh", "init", "mixed"])
@@ -74,44 +74,39 @@ def _canvas(b, h, w, cfg, seed, u8):
 def test_fused_retinex_ema_matches_jnp_oracle(carry_mode, u8):
     cfg = PipelineConfig()
     h, w, alpha = 40, 72, 0.3
-    xp, plan = _canvas(2, h, w, cfg, seed=7, u8=u8)
+    xb, halo = _block(2, h, w, cfg, seed=7, u8=u8)
     rng = np.random.default_rng(8)
-    carry = rng.random((2,) + xp.shape[-2:], dtype=np.float32) * 0.5 + 0.05
-    if carry_mode == "fresh":
-        carry = np.full_like(carry, -1.0)  # the uninitialized sentinel
-    elif carry_mode == "mixed":
-        # per-pixel sentinel mix: a multi-stream batch where one stream was
-        # just reset sees exactly this
-        carry[0][rng.random(carry[0].shape) < 0.5] = -1.0
-    carry = jnp.asarray(carry)
-    got, got_lmix = fused_retinex_ema(xp, carry, cfg, plan, alpha, w,
-                                      interpret=True)
-    want, want_lmix = _oracle_ema(xp, carry, cfg, alpha, w)
-    m = plan.margin
-    want = want[..., m : m + plan.n_stripes * plan.stripe_rows, :]
-    want_lmix = want_lmix[..., m : m + plan.n_stripes * plan.stripe_rows, :]
+    carry = rng.random((2,) + xb.shape[-2:], dtype=np.float32) * 0.5 + 0.05
+    flag = {"fresh": [False, False], "init": [True, True],
+            "mixed": [False, True]}[carry_mode]  # mixed: stream 0 was reset
+    (_, got_lmix), got = video_step(
+        (jnp.asarray(flag), jnp.asarray(carry)), xb, cfg, alpha, h=h, w=w)
+    oracle_carry = np.where(np.asarray(flag)[:, None, None], carry, -1.0)
+    want, want_lmix = _oracle_ema(xb, jnp.asarray(oracle_carry), cfg, alpha,
+                                  w)
+    m = MARGIN
     g = np.asarray(got)[..., :h, m : m + w]
-    wv = np.asarray(want)[..., :h, m : m + w]
+    wv = np.asarray(want)[..., halo : halo + h, m : m + w]
     if u8:
         d = np.abs(g.astype(int) - wv.astype(int))
         assert d.max() <= 1 and (d > 0).mean() < 1e-3
     else:
         np.testing.assert_allclose(g, wv, atol=1e-6)
     np.testing.assert_allclose(
-        np.asarray(got_lmix)[..., :h, m : m + w],
-        np.asarray(want_lmix)[..., :h, m : m + w], atol=1e-6,
+        np.asarray(got_lmix)[..., halo : halo + h, m : m + w],
+        np.asarray(want_lmix)[..., halo : halo + h, m : m + w], atol=1e-6,
     )
 
 
 def test_alpha_one_reduces_to_stateless_illumination():
     """alpha=1 ignores the carry entirely: a garbage (but positive) carry
-    produces the same frame as the sentinel carry."""
+    produces the same frame as a fresh stream."""
     cfg = PipelineConfig()
-    xp, plan = _canvas(1, 40, 72, cfg, seed=3, u8=True)
-    junk = jnp.full((1,) + xp.shape[-2:], 0.77)
-    fresh = jnp.full((1,) + xp.shape[-2:], -1.0)
-    a, _ = fused_retinex_ema(xp, junk, cfg, plan, 1.0, 72, interpret=True)
-    b, _ = fused_retinex_ema(xp, fresh, cfg, plan, 1.0, 72, interpret=True)
+    xb, _ = _block(1, 40, 72, cfg, seed=3, u8=True)
+    junk = (jnp.ones((1,), bool), jnp.full((1,) + xb.shape[-2:], 0.77))
+    fresh = (jnp.zeros((1,), bool), jnp.zeros((1,) + xb.shape[-2:]))
+    _, a = video_step(junk, xb, cfg, 1.0, h=40, w=72)
+    _, b = video_step(fresh, xb, cfg, 1.0, h=40, w=72)
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
@@ -125,20 +120,18 @@ def _poison(carry_np, lo, hi, value):
 
 @pytest.mark.parametrize("poison_value", [1e6, -5.0])
 def test_video_step_ignores_carry_outside_consumed_band(poison_value):
-    """The adversarial carry-band test (VERDICT r3 item 1): on the fused
-    path, carry rows outside [halo - MARGIN, halo + rows + MARGIN) must be
-    dead — poisoning them (huge positive, and the negative sentinel that
-    would flip those pixels to 'uninitialized' if read) changes neither the
-    output frames nor the evolving carry, over multiple frames."""
+    """Carry rows outside [halo - MARGIN, halo + rows + MARGIN) are dead:
+    poisoning them (huge positive, and the negative sentinel that would
+    flip those pixels to 'uninitialized' if read) changes neither the
+    output frames nor the in-band carry, over multiple frames."""
     cfg = PipelineConfig(compute_dtype="float32")
     halo = learned_halo(cfg)
     rng = np.random.default_rng(11)
     frames = [(rng.random((40, 64, 3)) * 255).astype(np.uint8)
               for _ in range(3)]
 
-    ve_a = VideoEnhancer(cfg, alpha=0.3, pallas_interpret=True)
-    ve_b = VideoEnhancer(cfg, alpha=0.3, pallas_interpret=True)
-    assert ve_a._use_pallas
+    ve_a = VideoEnhancer(cfg, alpha=0.3)
+    ve_b = VideoEnhancer(cfg, alpha=0.3)
     oa = ve_a.process(frames[0])
     ob = ve_b.process(frames[0])
     np.testing.assert_array_equal(oa, ob)
@@ -155,17 +148,13 @@ def test_video_step_ignores_carry_outside_consumed_band(poison_value):
         oa = ve_a.process(f)
         ob = ve_b.process(f)
         np.testing.assert_array_equal(oa, ob)
-    # and the carries re-converge exactly: the fused step re-derives the
-    # outside-band rows by edge replication every frame
-    np.testing.assert_array_equal(np.asarray(ve_a._state[1]),
-                                  np.asarray(ve_b._state[1]))
+    np.testing.assert_array_equal(np.asarray(ve_a._state[1])[lo:hi],
+                                  np.asarray(ve_b._state[1])[lo:hi])
 
 
 def test_sharded_video_ignores_carry_outside_consumed_band():
     """Same poison argument per shard: each shard's outside-band carry rows
     (its halo overlap region minus the MARGIN-consumed edge) are dead."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs >=2 devices (fake-device CPU env)")
     from low_light_image_enhancement_tpu.parallel import (
         SpatialShardedVideoEnhancer,
         make_mesh,
@@ -178,10 +167,8 @@ def test_sharded_video_ignores_carry_outside_consumed_band():
     frames = [(rng.random((96, 64, 3)) * 255).astype(np.uint8)
               for _ in range(3)]
 
-    sa = SpatialShardedVideoEnhancer(mesh, cfg, alpha=0.3,
-                                     pallas_interpret=True)
-    sb = SpatialShardedVideoEnhancer(mesh, cfg, alpha=0.3,
-                                     pallas_interpret=True)
+    sa = SpatialShardedVideoEnhancer(mesh, cfg, alpha=0.3)
+    sb = SpatialShardedVideoEnhancer(mesh, cfg, alpha=0.3)
     np.testing.assert_array_equal(sa.process(frames[0]),
                                   sb.process(frames[0]))
     flag, carry = sb._state  # (n_shards, canvas_rows, wp)
@@ -190,33 +177,27 @@ def test_sharded_video_ignores_carry_outside_consumed_band():
     sb._state = (flag, jnp.asarray(_poison(np.asarray(carry), lo, hi, 1e6)))
     for f in frames[1:]:
         np.testing.assert_array_equal(sa.process(f), sb.process(f))
-    np.testing.assert_array_equal(np.asarray(sa._state[1]),
-                                  np.asarray(sb._state[1]))
+    np.testing.assert_array_equal(np.asarray(sa._state[1])[:, lo:hi],
+                                  np.asarray(sb._state[1])[:, lo:hi])
 
 
-def test_traced_alpha_raises_clear_error_on_fused_path():
-    """ADVICE r3: float(alpha) inside the kernel would raise an opaque
-    ConcretizationTypeError if a caller jits video_step over alpha; the
-    fused path must instead name ema_in_kernel=False as the escape hatch —
-    and that path must actually accept the traced alpha."""
-    from low_light_image_enhancement_tpu.blocks import block_geometry
-    from low_light_image_enhancement_tpu.video import video_step
-
+def test_traced_alpha_jits():
+    """alpha may be traced: jitting video_step over it compiles one program
+    for every alpha, and the result matches the static-alpha step."""
     cfg = PipelineConfig(compute_dtype="float32")
     halo = learned_halo(cfg)
     h, w = 40, 64
     h_core, wp = block_geometry(cfg, h, w)
-    xb = jnp.zeros((3, h_core + 2 * halo, wp), jnp.uint8)
-    state = (jnp.zeros((), bool), jnp.zeros((h_core + 2 * halo, wp)))
+    xb = jnp.asarray(np.random.default_rng(5).integers(
+        0, 255, (3, h_core + 2 * halo, wp), dtype=np.uint8))
+    state = (jnp.ones((), bool), jnp.full((h_core + 2 * halo, wp), 0.3))
 
-    def step(state, xb, alpha, ema_in_kernel):
-        return video_step(state, xb, cfg, alpha, None, h, w,
-                          use_pallas=True, interpret=True,
-                          ema_in_kernel=ema_in_kernel)
+    def step(state, xb, alpha):
+        return video_step(state, xb, cfg, alpha, None, h, w)
 
-    with pytest.raises(TypeError, match="ema_in_kernel=False"):
-        jax.jit(step, static_argnums=(3,))(state, xb, 0.3, True)
-    # the documented escape hatch traces fine
-    (_, carry2), out = jax.jit(step, static_argnums=(3,))(
-        state, xb, 0.3, False)
-    assert out.shape[-2] == h_core and carry2.shape == state[1].shape
+    (_, c_traced), out_traced = jax.jit(step)(state, xb, 0.3)
+    (_, c_static), out_static = step(state, xb, 0.3)
+    assert out_traced.shape[-2] == h_core
+    assert c_traced.shape == state[1].shape
+    d = np.abs(np.asarray(out_traced, int) - np.asarray(out_static, int))
+    assert d.max() <= 1

@@ -1,7 +1,7 @@
-"""Guided-filter denoise tail (VERDICT r3 item 3): the margin/halo redesign
-admits receptive radius >= 6, and `denoise_taps="guided"` runs the He-et-al
-box-mean cascade inside the fused kernels with jnp parity — single device,
-striped, and sharded.
+"""Guided-filter denoise tail: the margin/halo design admits receptive
+radius >= 6, and `denoise_taps="guided"` runs the He-et-al box-mean cascade
+on the plain jnp path (outside the fused kernel's coverage) — single
+device, tall canvases, sharded, and video.
 """
 
 import jax
@@ -17,11 +17,7 @@ from low_light_image_enhancement_tpu.config import (
 )
 from low_light_image_enhancement_tpu.core import enhance_core_padded
 from low_light_image_enhancement_tpu.data.synth import synth_batch
-from low_light_image_enhancement_tpu.kernels.fused_enhance import (
-    fused_retinex,
-    retinex_plan_bytes_per_px,
-)
-from low_light_image_enhancement_tpu.kernels.striping import plan_stripes
+from low_light_image_enhancement_tpu import backend
 from low_light_image_enhancement_tpu.ops.filters import roll2d
 from low_light_image_enhancement_tpu.ops.guided import (
     box_mean_shift,
@@ -29,6 +25,15 @@ from low_light_image_enhancement_tpu.ops.guided import (
     guided_joint_core_shift,
 )
 from low_light_image_enhancement_tpu.pipeline import EnhancePipeline, pad_planar
+
+
+def _wide_margin_reference(x, cfg, extra=16):
+    """The same graph on a canvas with ``extra`` more replicate rows/cols:
+    the interior must not move if the config's margin covers the tail."""
+    m = canvas_margin(cfg)
+    wide = np.asarray(enhance_core_padded(pad_planar(x, m + extra), cfg))
+    h, w = x.shape[-2:]
+    return wide[..., m + extra : m + extra + h, m + extra : m + extra + w]
 
 
 # --------------------------------------------------------------------- #
@@ -82,7 +87,7 @@ def test_learned_halo_covers_guided_radius():
     assert learned_halo(
         PipelineConfig(method="decom", denoise_taps="guided")) == 16
     # retinex+guided: the floor (8 + 4) drives the halo to 16, giving the
-    # fused EMA carry band denoise_radius rows of slack per side
+    # video carry band denoise_radius rows of slack per side
     assert learned_halo(PipelineConfig(denoise_taps="guided")) == 16
     # fcn: the dilation stack's radius dominates either way
     assert learned_halo(PipelineConfig(method="fcn")) == 72
@@ -149,48 +154,38 @@ def test_guided_joint_core_denoises_and_preserves_edges():
 
 
 # --------------------------------------------------------------------- #
-# kernel parity (interpret mode), margin-8 canvas
+# plain path, margin-8 canvas, against a wider canvas
 # --------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("guide", ["luma", "perchannel"])
 @pytest.mark.parametrize("h,w", [(40, 72), (33, 47)])
-def test_fused_retinex_guided_parity_interpret(h, w, guide):
+def test_guided_margin_covers_tail(h, w, guide):
     cfg = PipelineConfig(denoise_taps="guided", denoise_guide=guide)
     m = canvas_margin(cfg)
     assert m == 8
     rng = np.random.default_rng(3)
     x = jnp.asarray(rng.random((2, 3, h, w), dtype=np.float32))
-    plan = plan_stripes(h, w, m, cfg.stripe_rows,
-                        bytes_per_px=retinex_plan_bytes_per_px(cfg))
-    xp = pad_planar(x, plan, h, w)
-    got = np.asarray(fused_retinex(xp, cfg, plan, interpret=True))
-    want = np.asarray(enhance_core_padded(xp, cfg))
-    want = want[..., m : m + plan.n_stripes * plan.stripe_rows, :]
-    np.testing.assert_allclose(
-        got[..., :h, m : m + w], want[..., :h, m : m + w], atol=1e-5
-    )
+    got = np.asarray(enhance_core_padded(pad_planar(x, m), cfg))
+    np.testing.assert_array_equal(got[..., m : m + h, m : m + w],
+                                  _wide_margin_reference(x, cfg))
 
 
 @pytest.mark.parametrize("radius", [2, 4])
-def test_fused_retinex_guided_two_radii_striped(radius):
-    """Parity at 2 radii on a tall canvas that forces >= 2 stripes, so the
-    stripe-halo geometry at the widened margin is exercised."""
-    cfg = PipelineConfig(denoise_taps="guided", guided_radius=radius,
-                         stripe_rows=32)
-    m = canvas_margin(cfg)
-    h, w = 96, 40
-    rng = np.random.default_rng(4)
-    x = jnp.asarray(rng.random((1, 3, h, w), dtype=np.float32))
-    plan = plan_stripes(h, w, m, cfg.stripe_rows,
-                        bytes_per_px=retinex_plan_bytes_per_px(cfg))
-    assert plan.n_stripes >= 2
-    xp = pad_planar(x, plan, h, w)
-    got = np.asarray(fused_retinex(xp, cfg, plan, interpret=True))
-    want = np.asarray(enhance_core_padded(xp, cfg))
-    want = want[..., m : m + plan.n_stripes * plan.stripe_rows, :]
-    np.testing.assert_allclose(
-        got[..., :h, m : m + w], want[..., :h, m : m + w], atol=1e-5
+def test_guided_two_radii_tall_canvas(radius):
+    """Both radii on a tall canvas, through the pipeline (u8 in and out)."""
+    from low_light_image_enhancement_tpu.ops.colorspace import (
+        normalize_u8,
+        quantize_u8,
     )
+
+    cfg = PipelineConfig(denoise_taps="guided", guided_radius=radius)
+    h, w = 96, 40
+    lows, _ = synth_batch(1, h, w)
+    got = EnhancePipeline(cfg).enhance_batch(lows)
+    x = normalize_u8(jnp.asarray(np.transpose(lows, (0, 3, 1, 2))))
+    want = np.transpose(np.asarray(quantize_u8(jnp.asarray(
+        _wide_margin_reference(x, cfg)))), (0, 2, 3, 1))
+    np.testing.assert_array_equal(got, want)
 
 
 # --------------------------------------------------------------------- #
@@ -198,24 +193,24 @@ def test_fused_retinex_guided_two_radii_striped(radius):
 # --------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("method", ["retinex", "curve", "hybrid"])
-def test_pipeline_guided_pallas_matches_jnp(method):
+def test_pipeline_guided_runs_plain_path(method):
+    """The guided tail is outside the fused kernel's coverage: even a
+    pipeline that asks for the interpreter runs the plain graph, and gives
+    the plain graph's output."""
     lows, _ = synth_batch(2, 40, 72)
     kw = {"curve_downsample": 2} if method in ("curve", "hybrid") else {}
     cfg = PipelineConfig(method=method, denoise_taps="guided",
                          compute_dtype="float32", **kw)
+    assert not backend.use_kernel(cfg, interpret=True)
     jnp_pipe = EnhancePipeline(cfg, force_jnp=True)
     pal_pipe = EnhancePipeline(cfg, pallas_interpret=True,
                                model_params=jnp_pipe.model_params)
-    assert pal_pipe._use_pallas
-    a = jnp_pipe.enhance_batch(lows)
-    b = pal_pipe.enhance_batch(lows)
-    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
-    assert d.max() <= 1 and (d > 0).mean() < 1e-3
+    assert not pal_pipe._use_kernel
+    np.testing.assert_array_equal(jnp_pipe.enhance_batch(lows),
+                                  pal_pipe.enhance_batch(lows))
 
 
 def test_sharded_guided_retinex_matches_single_device_8_shards():
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices (fake-device CPU env)")
     from low_light_image_enhancement_tpu.parallel import (
         enhance_spatial_sharded,
         make_mesh,
@@ -237,17 +232,24 @@ def test_sharded_guided_retinex_matches_single_device_8_shards():
     assert d.max() <= 1 and (d > 0).mean() < 1e-3
 
 
-def test_video_guided_pallas_matches_jnp():
-    """The fused EMA video kernel with the guided tail (margin-8 band
-    arithmetic) against the jnp video path."""
+def test_video_guided_alpha_one_matches_stateless():
+    """At alpha=1 the video step is the stateless pipeline: the guided tail
+    on the video block (halo geometry, margin-8 band) against the
+    pipeline's canvas. The relit gain is computed as exp(g*log L - log L)
+    there and exp((g-1)*log L) here, so u8 rounding ties may differ: one
+    step, on few pixels. The video step replicates the gain's margin
+    columns where the pipeline blurs across them, so the outer
+    ``denoise_radius`` columns are left out."""
     from low_light_image_enhancement_tpu.video import VideoEnhancer
 
     rng = np.random.default_rng(5)
     frames = [(rng.random((48, 64, 3)) * 255).astype(np.uint8)
               for _ in range(3)]
     cfg = PipelineConfig(denoise_taps="guided", compute_dtype="float32")
-    vk = VideoEnhancer(cfg, alpha=0.3, pallas_interpret=True)
-    vj = VideoEnhancer(cfg, alpha=0.3, force_jnp=True)
+    vk = VideoEnhancer(cfg, alpha=1.0)
+    pipe = EnhancePipeline(cfg)
+    r = denoise_radius(cfg)
     for f in frames:
-        d = np.abs(vk.process(f).astype(int) - vj.process(f).astype(int))
+        d = np.abs(vk.process(f).astype(int) - pipe.enhance(f).astype(int))
+        d = d[:, r:-r]
         assert d.max() <= 1 and (d > 0).mean() < 1e-3

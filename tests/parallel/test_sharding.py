@@ -9,7 +9,6 @@ from jax import shard_map
 
 from low_light_image_enhancement_tpu.config import PipelineConfig
 from low_light_image_enhancement_tpu.core import MARGIN, enhance_core_padded
-from low_light_image_enhancement_tpu.kernels.striping import plan_stripes
 from low_light_image_enhancement_tpu.parallel import (
     enhance_spatial_sharded,
     halo_pad_local,
@@ -65,8 +64,7 @@ def test_spatial_sharded_matches_single_device(n_spatial):
 
     got = np.asarray(enhance_spatial_sharded(x, cfg, mesh))
 
-    plan = plan_stripes(h, w, MARGIN, cfg.stripe_rows)
-    xp = pad_planar(x, plan, h, w)
+    xp = pad_planar(x, MARGIN)
     want = np.asarray(
         enhance_core_padded(xp, cfg)[..., MARGIN : MARGIN + h, MARGIN : MARGIN + w]
     )
@@ -85,7 +83,7 @@ def test_spatial_sharded_with_data_axis():
 
 
 def test_spatial_sharded_u8_matches_pipeline_bit_exact():
-    """u8 sharded path (u8 halos + per-shard fused kernel, interpret mode)
+    """u8 sharded path (u8 halos + per-shard fused kernel, interpreter)
     must reproduce the single-device u8 pipeline exactly."""
     from low_light_image_enhancement_tpu.data.synth import synth_batch
     from low_light_image_enhancement_tpu.pipeline import EnhancePipeline
@@ -96,7 +94,7 @@ def test_spatial_sharded_u8_matches_pipeline_bit_exact():
     x_u8 = jnp.transpose(jnp.asarray(lows), (0, 3, 1, 2))  # u8 planar
 
     got = np.asarray(
-        enhance_spatial_sharded(x_u8, cfg, mesh, use_pallas=True,
+        enhance_spatial_sharded(x_u8, cfg, mesh, use_kernel=True,
                                 interpret=True)
     )
     want = EnhancePipeline(cfg, pallas_interpret=True).enhance_batch(lows)
@@ -104,11 +102,23 @@ def test_spatial_sharded_u8_matches_pipeline_bit_exact():
     np.testing.assert_array_equal(got, want_planar)
 
 
-def test_spatial_sharded_u8_requires_pallas():
+def test_spatial_sharded_u8_plain_matches_pipeline():
+    """u8 in on the plain path: each shard converts at its own boundary and
+    the result equals the single-device plain pipeline exactly; f32 input
+    to the kernel is refused."""
+    from low_light_image_enhancement_tpu.data.synth import synth_batch
+    from low_light_image_enhancement_tpu.pipeline import EnhancePipeline
+
     mesh = make_mesh(n_data=1, n_spatial=2)
-    x = jnp.zeros((1, 3, 16, 16), jnp.uint8)
-    with pytest.raises(ValueError, match="use_pallas"):
-        enhance_spatial_sharded(x, PipelineConfig(), mesh, use_pallas=False)
+    lows, _ = synth_batch(1, 48, 40)
+    x_u8 = jnp.transpose(jnp.asarray(lows), (0, 3, 1, 2))
+    got = np.asarray(enhance_spatial_sharded(x_u8, PipelineConfig(), mesh))
+    want = EnhancePipeline(PipelineConfig(), force_jnp=True
+                           ).enhance_batch(lows)
+    np.testing.assert_array_equal(got, np.transpose(want, (0, 3, 1, 2)))
+    with pytest.raises(ValueError, match="uint8"):
+        enhance_spatial_sharded(jnp.zeros((1, 3, 16, 16)), PipelineConfig(),
+                                mesh, use_kernel=True, interpret=True)
 
 
 @pytest.mark.parametrize(

@@ -1,72 +1,28 @@
-"""conv_impl='auto' resolution policy (blocks.resolve_conv_impl).
-
-The auto policy is a measured per-method band table
-(blocks.AUTO_CONV_BANDS, pinned by scripts/bench_conv.py on the real
-chip — docs/PERFORMANCE.md round-3 crossover table). These tests pin the
-*mapping* — bands -> impl per (method, batch), off-TPU and unknown-batch
-fallbacks — not the measured numbers behind it.
-"""
+"""conv_impl resolution (blocks.resolve_conv_impl): "auto" is XLA's own
+convolution on every backend; the packed and GEMM lowerings are explicit
+choices only; the retired kernel lowerings are refused."""
 
 import pytest
 
 from low_light_image_enhancement_tpu import blocks
-from low_light_image_enhancement_tpu.config import PipelineConfig
+from low_light_image_enhancement_tpu.config import CONV_IMPLS, PipelineConfig
 
 
-def _resolve(monkeypatch, method, batch, backend="tpu", **cfg_kw):
-    monkeypatch.setattr(blocks.jax, "default_backend", lambda: backend)
-    cfg = PipelineConfig(method=method, conv_impl="auto", **cfg_kw)
-    return blocks.resolve_conv_impl(cfg, batch=batch).conv_impl
+@pytest.mark.parametrize("method", ["retinex", "curve", "hybrid", "fcn",
+                                    "decom"])
+def test_auto_resolves_to_xla(method):
+    cfg = PipelineConfig(method=method, conv_impl="auto")
+    assert blocks.resolve_conv_impl(cfg).conv_impl == "xla"
 
 
-@pytest.mark.parametrize(
-    "method,batch,expected",
-    [
-        # fcn: packed wins e2e through batch 48 (742 vs 691), xla by 64.
-        ("fcn", 8, "packed"),
-        ("fcn", 48, "packed"),
-        ("fcn", 55, "packed"),
-        ("fcn", 56, "xla"),
-        ("fcn", 128, "xla"),
-        # curve: packed wins e2e through 32 (507 vs 420), xla by 48.
-        ("curve", 8, "packed"),
-        ("curve", 32, "packed"),
-        ("curve", 39, "packed"),
-        ("curve", 40, "xla"),
-        ("curve", 64, "xla"),
-        # hybrid shares curve's CNN and bands.
-        ("hybrid", 32, "packed"),
-        ("hybrid", 64, "xla"),
-        # decom: conservative (32, None).
-        ("decom", 16, "packed"),
-        ("decom", 32, "xla"),
-    ],
-)
-def test_auto_bands_on_tpu(monkeypatch, method, batch, expected):
-    kw = {"curve_downsample": 4} if method in ("curve", "hybrid") else {}
-    assert _resolve(monkeypatch, method, batch, **kw) == expected
+@pytest.mark.parametrize("impl", ["xla", "gemm", "packed", "packed12"])
+def test_explicit_impl_is_untouched(impl):
+    cfg = PipelineConfig(method="fcn", conv_impl=impl)
+    assert blocks.resolve_conv_impl(cfg).conv_impl == impl
+    assert impl in CONV_IMPLS
 
 
-def test_auto_is_xla_off_tpu(monkeypatch):
-    # packed's structural FLOP inflation only pays on the MXU.
-    assert _resolve(monkeypatch, "fcn", 8, backend="cpu") == "xla"
-
-
-def test_auto_is_xla_when_batch_unknown(monkeypatch):
-    assert _resolve(monkeypatch, "fcn", None) == "xla"
-
-
-def test_explicit_impl_is_untouched(monkeypatch):
-    monkeypatch.setattr(blocks.jax, "default_backend", lambda: "tpu")
-    cfg = PipelineConfig(method="fcn", conv_impl="packed12")
-    assert blocks.resolve_conv_impl(cfg, batch=256).conv_impl == "packed12"
-
-
-def test_bands_cover_every_learned_method():
-    # A method missing from the table silently falls back to the default
-    # band — keep the table in sync with the learned-method set.
-    assert set(blocks.AUTO_CONV_BANDS) >= {"curve", "hybrid", "fcn", "decom"}
-    for packed_max, packed12_max in blocks.AUTO_CONV_BANDS.values():
-        assert packed_max >= 0
-        if packed12_max is not None:
-            assert packed12_max > packed_max
+@pytest.mark.parametrize("impl", ["pallas", "cascade"])
+def test_removed_impls_rejected(impl):
+    with pytest.raises(ValueError, match="conv_impl"):
+        PipelineConfig(conv_impl=impl)

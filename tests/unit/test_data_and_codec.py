@@ -53,6 +53,9 @@ def test_codec_png_roundtrip(tmp_path):
 
 
 def test_codec_jpeg_lossy_close(tmp_path):
+    import pytest
+
+    pytest.importorskip("PIL")  # JPEG goes through the optional Pillow
     img = np.full((32, 32, 3), 128, dtype=np.uint8)
     data = encode_image(img, format="JPEG", quality=95)
     out = decode_image(data)

@@ -1,9 +1,7 @@
 """Space-to-depth block-conv ("packed") model stacks vs the XLA-conv
-reference applies. The packed form is ONE lax.conv per layer on 4x-lane
-activations (ops.patch_conv.conv2d_block_xla) — conv_impl='auto' selects
-it on TPU at small batch (blocks.AUTO_CONV_BANDS; docs/PERFORMANCE.md
-round-3 conv tables) — so parity here is the correctness contract for the
-default small-batch learned inference path."""
+reference applies. The packed form is ONE lax.conv per layer on 4x-channel
+activations (ops.patch_conv.conv2d_block_xla), an explicit conv_impl
+choice — parity here is its correctness contract."""
 
 import jax
 import jax.numpy as jnp

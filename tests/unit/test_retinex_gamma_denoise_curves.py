@@ -98,8 +98,8 @@ def test_denoise_reduces_noise_keeps_edges():
 
 def test_denoise_epan_kind_close_to_exp():
     """The squared-Epanechnikov range weight tracks the Gaussian closely:
-    same sigma scale, near-identical smoothing (measured perf-neutral on
-    TPU — ops/denoise.py module docstring)."""
+    same sigma scale, near-identical smoothing (ops/denoise.py module
+    docstring)."""
     x = _rand_rgb(7)
     y_exp = np.asarray(bilateral_denoise(x, strength=1.0, kind="exp"))
     y_epa = np.asarray(bilateral_denoise(x, strength=1.0, kind="epan"))
@@ -147,8 +147,8 @@ def test_denoise_luma_guide_shares_weights_across_channels():
 
 def test_denoise_sep_taps_close_to_full_and_reduces_noise():
     """The separable 3+3-tap approximation must track the full 3x3 bilateral
-    closely on natural-ish data and still denoise (it is the +22% TPU fast
-    path — ops/denoise.py bilateral_sep_core)."""
+    closely on natural-ish data and still denoise (the default tap layout
+    — ops/denoise.py bilateral_sep_core)."""
     rng = np.random.default_rng(21)
     clean = np.zeros((3, 32, 32), np.float32)
     clean[:, :, 16:] = 0.7

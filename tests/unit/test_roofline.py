@@ -1,39 +1,39 @@
-"""Sanity tests for the analytic roofline model (VERDICT r3 item 5)."""
+"""Sanity tests for the analytic per-image cost model (utils.roofline)."""
 
 import pytest
 
 from low_light_image_enhancement_tpu.config import PipelineConfig
+from low_light_image_enhancement_tpu.utils import roofline
 from low_light_image_enhancement_tpu.utils.roofline import (
-    V5E_HBM_GBPS,
-    V5E_MXU_BF16_TFLOPS,
+    achieved,
     pipeline_cost,
-    roofline_report,
+    train_step_cost,
 )
 
 
-def test_retinex_is_pure_vpu_and_minimal_io():
+def test_retinex_is_pixel_work_and_minimal_io():
     cfg = PipelineConfig()
     c = pipeline_cost(cfg, 400, 600)
-    assert c.mxu_flops == 0.0          # no convs on the classical path
-    assert c.hbm_bytes == 6 * 400 * 600  # u8 in + u8 out, nothing else
-    assert c.vpu_flops > 50 * 400 * 600  # blur + gain + bilateral per px
+    assert c.conv_flops == 0.0          # no convs on the classical path
+    assert c.mem_bytes == 6 * 400 * 600  # u8 in + u8 out, nothing else
+    assert c.pixel_flops > 50 * 400 * 600  # blur + gain + bilateral per px
 
 
 def test_costs_scale_with_area():
     cfg = PipelineConfig(method="fcn")
     a = pipeline_cost(cfg, 200, 300)
     b = pipeline_cost(cfg, 400, 600)
-    for f in ("mxu_flops", "vpu_flops", "hbm_bytes"):
+    for f in ("conv_flops", "pixel_flops", "mem_bytes"):
         assert getattr(b, f) == pytest.approx(4 * getattr(a, f), rel=1e-6)
 
 
-def test_curve_downsample_cuts_mxu_quadratically():
+def test_curve_downsample_cuts_conv_flops_quadratically():
     c1 = pipeline_cost(PipelineConfig(method="curve", curve_downsample=1),
                        400, 600)
     c4 = pipeline_cost(PipelineConfig(method="curve", curve_downsample=4),
                        400, 600)
-    assert c4.mxu_flops == pytest.approx(c1.mxu_flops / 16, rel=1e-6)
-    assert c4.hbm_bytes < c1.hbm_bytes
+    assert c4.conv_flops == pytest.approx(c1.conv_flops / 16, rel=1e-6)
+    assert c4.mem_bytes < c1.mem_bytes
 
 
 def test_bf16_halves_activation_traffic():
@@ -41,70 +41,48 @@ def test_bf16_halves_activation_traffic():
     f32 = pipeline_cost(
         PipelineConfig(method="fcn", compute_dtype="float32"), 400, 600)
     io = 6 * 400 * 600
-    assert f32.hbm_bytes - io == pytest.approx(2 * (bf.hbm_bytes - io))
+    assert f32.mem_bytes - io == pytest.approx(2 * (bf.mem_bytes - io))
 
 
 def test_fcn_conv_flops_match_hand_count():
     # 7 3x3 layers: (3->24) + 6x(24->24), + 1x1 (24->3), per pixel x2 (FMA)
     per_px = 2 * 9 * (3 * 24 + 6 * 24 * 24) + 2 * 24 * 3
     c = pipeline_cost(PipelineConfig(method="fcn"), 400, 600)
-    assert c.mxu_flops == per_px * 400 * 600
+    assert c.conv_flops == per_px * 400 * 600
 
 
-def test_report_fields_and_bound():
-    cfg = PipelineConfig()
-    r = roofline_report(cfg, 400, 600, images_per_sec=45_640.0)
-    # headline-rate retinex: no MXU work, HBM ~66 GB/s of 819 -> the
-    # binding ceiling must be the VPU (the bilateral taps), exactly the
-    # trace-verified per-stage finding
-    assert r["roofline_bound"] == "VPU"
-    assert r["mxu_util_pct"] == 0.0
-    assert 0 < r["hbm_util_pct"] < 100
-    assert r["achieved_hbm_gbps"] == pytest.approx(
-        6 * 400 * 600 * 45_640 / 1e9, rel=1e-3)
-    # all fields are plain scalars (driver-scrapable JSON)
-    assert all(isinstance(v, (int, float, str)) for v in r.values())
+def test_achieved_rates_from_counts():
+    c = pipeline_cost(PipelineConfig(), 400, 600)
+    r = achieved(c, images_per_sec=45_640.0)
+    assert r["achieved_mem_gbps"] == pytest.approx(
+        6 * 400 * 600 * 45_640 / 1e9, rel=1e-9)
+    assert r["achieved_conv_tflops"] == 0.0
+    assert all(isinstance(v, float) for v in r.values())
 
 
-def test_every_method_has_a_model():
-    for m in ("retinex", "curve", "hybrid", "fcn", "decom"):
-        r = roofline_report(PipelineConfig(method=m), 400, 600, 1000.0)
-        assert r["roofline_bound"] in ("MXU", "VPU", "HBM")
-        if m in ("curve", "hybrid", "fcn", "decom"):
-            assert r["flops_per_img_mxu"] > 0
+@pytest.mark.parametrize("method", ["retinex", "curve", "hybrid", "fcn",
+                                    "decom"])
+def test_every_method_has_a_model(method):
+    c = pipeline_cost(PipelineConfig(method=method), 400, 600)
+    assert c.pixel_flops > 0 and c.mem_bytes >= 6 * 400 * 600
+    assert (c.conv_flops > 0) == (method != "retinex")
 
 
-def test_peaks_are_v5e_public_figures():
-    assert V5E_MXU_BF16_TFLOPS == 197.0 and V5E_HBM_GBPS == 819.0
+def test_no_device_peak_is_assumed():
+    """Shares of a peak belong to the benchmark's peak table, keyed by
+    device kind; this module carries counts only."""
+    names = [n for n in dir(roofline) if n.isupper() and not n.startswith("_")]
+    assert names == [], names
+    assert "roofline_bound" not in achieved(
+        pipeline_cost(PipelineConfig(), 8, 8), 1.0)
 
 
-def test_train_step_cost_and_report():
-    from low_light_image_enhancement_tpu.utils.roofline import (
-        train_roofline_report,
-        train_step_cost,
-    )
-
+def test_train_step_cost():
     c = train_step_cost(32, 8, 512, remat=True)
     c_nr = train_step_cost(32, 8, 512, remat=False)
-    # remat = one extra forward pass of conv FLOPs, less activation HBM
-    assert c.mxu_flops == pytest.approx(c_nr.mxu_flops * 4 / 3)
-    assert c.hbm_bytes > c_nr.hbm_bytes  # recompute re-materializes acts
+    # remat = one extra forward pass of conv FLOPs, more activation traffic
+    assert c.conv_flops == pytest.approx(c_nr.conv_flops * 4 / 3)
+    assert c.mem_bytes > c_nr.mem_bytes  # recompute re-materializes acts
     # conv FLOPs: 4 passes x 2*9*sum(cin*cout)*px
     pairs = 3 * 32 + 3 * 32 * 32 + 2 * 64 * 32 + 64 * 24
-    assert c.mxu_flops == pytest.approx(4 * 2 * 9 * pairs * 512 * 512)
-    r = train_roofline_report(32, 8, 512, images_per_sec=96.8)
-    assert r["train_roofline_bound"] in ("MXU", "VPU", "HBM")
-    assert 0 < r["train_mxu_util_pct_of_bf16_peak"] < 100
-    assert r["train_compute_dtype"] == "float32"
-    assert all(isinstance(v, (int, float, str)) for v in r.values())
-
-
-def test_vpu_peak_is_the_measured_constant():
-    from low_light_image_enhancement_tpu.utils.roofline import (
-        V5E_VPU_TFLOPS_MEAS,
-    )
-
-    # anchored by scripts/probe_vpu_peak.py (round 5): 3.5 TF/s f32 FMA
-    assert V5E_VPU_TFLOPS_MEAS == 3.5
-    r = roofline_report(PipelineConfig(), 400, 600, 46_000.0)
-    assert r["vpu_peak_tflops"] == 3.5
+    assert c.conv_flops == pytest.approx(4 * 2 * 9 * pairs * 512 * 512)
